@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--side 1024] [--seed 0]
+    python3 chip_smoke.py [--side 1024] [--prompt-len 2048] [--seed 0]
 
 Phases (any failure exits non-zero and prints no result line):
   1. device banner (name, nvidia-smi power limit);
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, sm_90a);
-  3. hold each kernel against its plain PyTorch version on the card;
-  4. the main path at full size, through the entry points: grid((side,
+  2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, sm_90a,
+     one nvcc per source, all started together);
+  3. hold pdist and spmv_bell against their plain PyTorch versions;
+  4. sparse path at full size, through the entry points: grid((side,
      side)) Laplacian -> Algorithm 1 on topo1(8) -> geoKM partition with the
      pdist kernel -> build_plan -> make_operator for dist_halo and
      dist_bell -> op.solve, checked against scipy; the launch counts are
      reset just before this phase and read just after it;
-  5. numbers (JSON lines tagged with the card's name and power limit):
-     phase seconds, CG iterations, per-iteration and per-matvec times,
-     each kernel's time at its main-path shapes beside its plain version,
-     a library call and its bound, peak device memory; then the
-     ``{"kernels": [...]}`` line;
-  6. last line: ``{"ok": true, "device": {...}}``.
+  5. sparse numbers: phase seconds, CG iterations, per-iteration and
+     per-matvec times, pdist and spmv_bell at their main-path shapes
+     beside their plain versions, a library call and their bounds;
+  6. hold the flash kernel against its plain version (f32 and bf16, the
+     reference test shapes, GQA cases, every head dim it is built for and
+     the serving shape), and show that the LM's causal attention reaches
+     it at a length that is not a tile multiple;
+  7. LM serving at the full width of qwen1.5-0.5b (random weights from a
+     seed): batch 8, prompt 2048, 32 generated tokens through
+     ``repro_torch.launch.serve.serve_tokens``; the counts are reset just
+     before and read just after, and the prefill must launch flash once
+     per layer and the decode loop never;
+  8. whole-model consistency in float32: last-token logits of a 2048-token
+     prefill (flash attention) against a 1920-token prefill plus 128
+     teacher-forced decode steps (plain decode attention), within 1e-3 of
+     the largest |logit|;
+  9. flash at the serving shape beside its plain version, SDPA and its
+     bound; peak device memory; then the ``{"kernels": [...]}`` line;
+ 10. last line: ``{"ok": true, "device": {...}}``.
+
+Numbers are JSON lines tagged with the card's name and power limit.
 
 Imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -34,7 +51,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
-FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+PEAK_FLOPS = {                   # H100 SXM data sheet, dense
+    "float32": 67e12,            # float32 outside the tensor cores
+    "bfloat16": 989e12,          # bf16 tensor cores
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -72,9 +92,12 @@ def event_ms(fn, reps: int = 10, inner: int = 1) -> float:
     return statistics.median(samples)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             dtype: str = "float32") -> tuple[float, str]:
+    """The larger of the bytes' time at the HBM rate and the operations'
+    time at the card's peak for ``dtype``, and which of the two it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -84,21 +107,12 @@ def close(got, want, atol: float, rtol: float) -> tuple[bool, float]:
     return ok, float(err.max())
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--side", type=int, default=1024,
-                    help="grid side of the main-path mesh (n = side^2)")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-
+def sparse_path(args, dev, gen, emit) -> list[dict]:
+    """Phases 3-5: pdist and spmv_bell against their plain versions, the
+    sparse path at full size, its numbers.  Returns the two kernel rows."""
     import numpy as np
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import scipy.sparse as sp
+    import torch
     from repro_torch.core.api import partition
     from repro_torch.core.block_sizes import (target_block_sizes,
                                               target_block_sizes_torch)
@@ -116,29 +130,7 @@ def main(argv=None) -> int:
     from repro_torch.sparse.graph import laplacian_csr
     from repro_torch.sparse.operator import make_operator
 
-    # plain versions must not quietly use TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # ---- 1. banner ------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
-    smi_line = smi()
-    tag = {"device": name, "nvidia_smi": smi_line}
-    print(f"device: {name}")
-    print(f"nvidia-smi: {smi_line}")
-
-    def emit(**kw):
-        print(json.dumps({**kw, **tag}), flush=True)
-
-    # ---- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    build_s = _build.build_all()
-    emit(phase="build", seconds=time.perf_counter() - t0,
-         per_source_s=build_s)
-
     # ---- 3. kernels against their plain versions ------------------------
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
     errs = {}
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         x = torch.randn(1 << 20, 2, generator=gen, device=dev).to(dt)
@@ -307,8 +299,200 @@ def main(argv=None) -> int:
         it_ms = event_ms(lambda: fused(xop), reps=5) / n_it
         emit(timing="cg", backend=label, matvec_ms=mv_ms, iteration_ms=it_ms,
              iters=sols[label][1], iters_timed=n_it)
-    emit(timing="memory", max_memory_allocated=peak,
-         max_memory_allocated_all=torch.cuda.max_memory_allocated())
+    emit(timing="memory", path="sparse", max_memory_allocated=peak)
+    return rows
+
+
+def lm_path(args, dev, gen, emit) -> dict:
+    """Phases 6-9: the flash kernel against its plain version, LM serving
+    at the full width of qwen1.5-0.5b, float32 prefill/decode consistency,
+    flash's numbers.  Returns the flash kernel row."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.models.attention import gqa_attend
+    from repro_torch.models.transformer import (decode_step, init_model,
+                                                prefill_forward)
+
+    cfg = get_config("qwen1.5-0.5b")
+    B, S = 8, args.prompt_len
+    H, D = cfg.n_heads, cfg.head_dim
+
+    # ---- 6. flash against its plain version ------------------------------
+    # f32: the reference test's 2e-3 (tests/test_kernels.py); bf16: 8e-3
+    # absolute and relative, two bf16 ulps of an output below 1 (both
+    # versions keep the softmax in f32 and round only the output)
+    tols = {torch.float32: 2e-3, torch.bfloat16: 8e-3}
+    cases = [(2, 4, 4, 256, 64, True, torch.float32),
+             (1, 2, 2, 128, 64, True, torch.float32),
+             (1, 2, 2, 128, 64, False, torch.float32),
+             (1, 2, 2, 384, 64, True, torch.float32),
+             (1, 2, 2, 384, 64, False, torch.float32),
+             (2, 8, 2, 256, 64, True, torch.float32),
+             (1, 4, 4, 256, 16, True, torch.float32),
+             (1, 4, 2, 256, 80, True, torch.float32),
+             (1, 4, 1, 256, 128, False, torch.float32),
+             (2, 8, 2, 256, 64, True, torch.bfloat16),
+             (B, H, H, S, D, True, torch.bfloat16)]
+    for b, h, hkv, s, d, causal, dt in cases:
+        # (B, S, H, D) buffers seen as (B, H, S, D): the layout gqa_attend
+        # hands the kernel
+        q, k, v = (torch.randn(b, s, hh, d, generator=gen, device=dev)
+                   .to(dt).transpose(1, 2) for hh in (h, hkv, hkv))
+        tol = tols[dt]
+        ok, err = close(flash_attention(q, k, v, causal=causal),
+                        flash_attention_ref(q, k, v, causal=causal),
+                        tol, tol)
+        emit(check="flash", shape=[b, h, s, d], kv_heads=hkv, causal=causal,
+             dtype=str(dt), max_abs_err=err, tol=tol, ok=ok)
+        check(ok, f"flash {(b, h, hkv, s, d, causal, dt)} disagrees with "
+                  f"its plain version: {err}")
+    flash_err = err                 # the serving shape, the last case
+
+    # the LM's causal attention at a length that is no tile multiple: one
+    # flash launch (on zero-padded tensors), never the plain chunked loop
+    for s, dt in ((200, torch.float32), (1000, torch.bfloat16)):
+        q, k, v = (torch.randn(2, s, H, D, generator=gen, device=dev).to(dt)
+                   for _ in range(3))
+        n0 = _build.launches()["flash"]
+        got = gqa_attend(q, k, v)
+        n = _build.launches()["flash"] - n0
+        want = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
+        ok, err = close(got, want.transpose(1, 2), tols[dt], tols[dt])
+        emit(check="flash_ragged", shape=[2, s, H, D], dtype=str(dt),
+             flash_launches=n, max_abs_err=err, tol=tols[dt], ok=ok)
+        check(n == 1, f"gqa_attend at S={s} launched flash {n} times")
+        check(ok, f"gqa_attend at S={s} {dt} disagrees with the plain "
+                  f"attention: {err}")
+    torch.cuda.synchronize()
+
+    # ---- 7. LM serving at full width (the main path) ---------------------
+    serve_tokens(cfg, batch=B, prompt_len=S, gen=1, seed=args.seed,
+                 device=dev)        # warm-up: cuBLAS handles, allocator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    r = serve_tokens(cfg, batch=B, prompt_len=S, gen=32, temperature=0.8,
+                     seed=args.seed, device=dev)
+    serve_s = time.perf_counter() - t0
+    lm_launches = _build.launches()
+    peak = torch.cuda.max_memory_allocated()
+    ids = r["tokens"][:, S:]
+    finite = bool(torch.isfinite(r["logits"].float()).all())
+    emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S, gen=32,
+         prefill_ms=r["prefill_ms"],
+         decode_ms_per_token=r["decode_ms_per_token"],
+         tok_per_s=r["tok_per_s"], seconds=serve_s, launches=lm_launches,
+         launches_prefill=r["launches_prefill"],
+         launches_decode=r["launches_decode"], finite_logits=finite,
+         ids_in_range=bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+         max_memory_allocated=peak, sample_ids=ids[0, :8].tolist())
+    check(finite, "serving: non-finite logits")
+    check(((ids >= 0) & (ids < cfg.vocab)).all(),
+          "serving: sampled ids outside [0, vocab)")
+    check(r["launches_prefill"]["flash"] == cfg.n_layers,
+          f"serving: {r['launches_prefill']['flash']} flash launches in "
+          f"the prefill, want {cfg.n_layers}")
+    check(r["launches_decode"]["flash"] == 0,
+          "serving: the decode loop launched flash")
+    check(lm_launches["flash"] == cfg.n_layers,
+          f"the LM path launched flash {lm_launches['flash']} times")
+    per_prefill = r["launches_prefill"]["flash"]
+    per_decode_step = r["launches_decode"]["flash"] / r["gen"]
+    del r
+    torch.cuda.empty_cache()
+
+    # ---- 8. float32 consistency: flash prefill vs plain decode ----------
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = init_model(cfg32, seed=args.seed, device=dev)
+    n_dec = 128
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 2).integers(
+        0, cfg.vocab, size=(4, S), dtype=np.int32)).to(dev)
+    t0 = time.perf_counter()
+    full, _ = prefill_forward(m32, cfg32, toks, cache_len=S)
+    logits, cache = prefill_forward(m32, cfg32, toks[:, :S - n_dec],
+                                    cache_len=S)
+    for t in range(S - n_dec, S):
+        logits, cache = decode_step(m32, cfg32, cache, toks[:, t:t + 1], t)
+    scale = float(full.abs().max())
+    rel = float((full - logits).abs().max()) / scale
+    emit(phase="lm_consistency_f32", batch=4, prefill=S,
+         prefill_then_decode=[S - n_dec, n_dec], max_abs_logit=scale,
+         rel_err=rel, tol=1e-3, seconds=time.perf_counter() - t0)
+    check(rel < 1e-3, f"f32 prefill vs prefill+decode logits differ by "
+                      f"{rel} of the largest |logit|")
+    del m32, cache, full, logits
+    torch.cuda.empty_cache()
+
+    # ---- 9. flash at the serving shape: times, bound --------------------
+    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev)
+               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
+    nbytes = 4 * q.numel() * q.element_size()     # q, k, v in; o out
+    flops = 4 * B * H * D * S * (S + 1) / 2       # QK^T and PV, causal
+    f_bound, f_by = bound_ms(nbytes, flops, "bfloat16")
+    return dict(
+        name="flash", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash.py:74",
+        launches=lm_launches["flash"], max_abs_err=flash_err,
+        ms=event_ms(lambda: flash_attention(q, k, v), inner=5),
+        plain_ms=event_ms(lambda: flash_attention_ref(q, k, v), reps=5),
+        bound_ms=f_bound, bound_by=f_by,
+        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), inner=10),
+        shape=[B, H, S, D], dtype="bfloat16", causal=True,
+        launches_per_prefill=per_prefill,
+        launches_per_decode_step=per_decode_step,
+        max_memory_allocated_serving=peak)
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--side", type=int, default=1024,
+                    help="grid side of the main-path mesh (n = side^2)")
+    ap.add_argument("--prompt-len", type=int, default=2048,
+                    help="LM serving prompt length (more than 128)")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+
+    # plain versions must not quietly use TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # ---- 1. banner ------------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi_line = smi()
+    tag = {"device": name, "nvidia_smi": smi_line}
+    print(f"device: {name}")
+    print(f"nvidia-smi: {smi_line}")
+
+    def emit(**kw):
+        print(json.dumps({**kw, **tag}), flush=True)
+
+    # ---- 2. build -------------------------------------------------------
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         per_source_s=build_s)
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rows = sparse_path(args, dev, gen, emit)
+    torch.cuda.empty_cache()
+    rows.append(lm_path(args, dev, gen, emit))
 
     print(json.dumps({"kernels": rows}))
     print(smi())

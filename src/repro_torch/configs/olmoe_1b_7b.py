@@ -1,0 +1,15 @@
+"""olmoe-1b-7b [moe] — arXiv:2409.02060.  64 experts top-8.
+16L d_model=2048 16H (GQA kv=16) d_expert=1024 vocab=50304."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe", n_layers=16, d_model=2048,
+    n_heads=16, n_kv_heads=16, d_ff=0, vocab=50304,
+    n_experts=64, top_k=8, d_expert=1024,
+)
+
+SMOKE = ModelConfig(
+    name="olmoe-smoke", family="moe", n_layers=2, d_model=64,
+    n_heads=4, n_kv_heads=4, d_ff=0, vocab=256,
+    n_experts=8, top_k=2, d_expert=32, dtype="float32",
+)

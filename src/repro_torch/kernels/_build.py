@@ -26,19 +26,23 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-SOURCES = {"pdist": "pdist.cu", "spmv_bell": "spmv_bell.cu"}
+SOURCES = {"pdist": "pdist.cu", "spmv_bell": "spmv_bell.cu",
+           "flash": "flash_attn.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_LP = ctypes.POINTER(ctypes.c_longlong)
 # launcher name -> argtypes; every launcher returns a cudaError_t as int
 SIGNATURES = {
     "pdist_f32": (_P, _P, _P, _L, _I, _I, _P),
     "pdist_bf16": (_P, _P, _P, _L, _I, _I, _P),
     "spmv_bell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
     "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
+    "flash_attn_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P),
+    "flash_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

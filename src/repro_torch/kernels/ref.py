@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
-The wrappers in :mod:`.pdist` and :mod:`.spmv_bell` take these for tensors
-on the CPU; the tests hold them against the JAX package's Pallas kernels,
-and ``chip_smoke.py`` holds the CUDA kernels against them on the card.
+The wrappers in :mod:`.pdist`, :mod:`.spmv_bell` and :mod:`.flash` take
+these for tensors on the CPU; the tests hold them against the JAX package's
+Pallas kernels, and ``chip_smoke.py`` holds the CUDA kernels against them
+on the card.
 """
 from __future__ import annotations
 
@@ -44,3 +45,32 @@ def spmv_block_ell_ref(blocks: torch.Tensor, cols: torch.Tensor,
     y = torch.einsum("ksbmt,ksbt->ksbm", blocks, xg).sum(2)
     y = y.reshape(K, S * BM)[:, :n].contiguous()
     return y if stacked else y[0]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        scale: float | None = None) -> torch.Tensor:
+    """Plain softmax attention, the oracle of the flash kernel.
+
+    q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) with Hkv dividing H, query head
+    h reading kv head ``h // (H // Hkv)``.  Scores, softmax and the PV
+    product are float32 and the output is in q's dtype.  The causal mask
+    keeps key j for query i when ``j <= i + Sk - Sq``, as
+    ``src/repro/kernels/ref.py::flash_attention_ref`` does; that oracle
+    forms the scores in the input dtype before its f32 cast, this one (like
+    both kernels) from f32 products.
+    """
+    H, Hkv = q.shape[1], k.shape[1]
+    if Hkv != H:
+        head = torch.arange(H, device=k.device) // (H // Hkv)
+        k, v = k[:, head], v[:, head]
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        sq, sk = q.shape[2], k.shape[2]
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits.masked_fill_(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -34,7 +34,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_fresh_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.sparse.operator, "
-            "repro_torch.core.api; "
+            "repro_torch.core.api, repro_torch.launch.serve, "
+            "repro_torch.models.convert; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -53,10 +54,15 @@ def _tiny():
 
 
 @pytest.mark.parametrize("entry", ["partition", "make_operator",
-                                   "build_plan", "cg_solve_global"])
+                                   "build_plan", "cg_solve_global",
+                                   "models.transformer.init_model",
+                                   "launch.serve.serve_tokens"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.api import partition
     from repro_torch.core.topology import Topology, scale_to_load
+    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.models.transformer import init_model
     from repro_torch.sparse.distributed import build_plan
     from repro_torch.sparse.operator import cg_solve_global, make_operator
     g, (indptr, indices, data) = _tiny()
@@ -69,12 +75,17 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
         "make_operator": lambda: make_operator(indptr, indices, data, "coo"),
         "build_plan": lambda: build_plan(indptr, indices, data, part, 2),
         "cg_solve_global": lambda: cg_solve_global(op, np.ones(g.n)),
+        "models.transformer.init_model": lambda: init_model(
+            get_config("qwen1.5-0.5b", smoke=True)),
+        "launch.serve.serve_tokens": lambda: serve_tokens(
+            get_config("qwen1.5-0.5b", smoke=True), gen=1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
 
 def test_kernel_wrappers_refuse_tensors_off_cpu_and_cuda():
+    from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.pdist import pairwise_sqdist
     from repro_torch.kernels.spmv_bell import spmv_block_ell
     x = torch.zeros(4, 2, device="meta")
@@ -84,3 +95,5 @@ def test_kernel_wrappers_refuse_tensors_off_cpu_and_cuda():
         spmv_block_ell(torch.zeros(1, 1, 8, 128, device="meta"),
                        torch.zeros(1, 1, dtype=torch.int32, device="meta"),
                        torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(*(torch.zeros(1, 2, 64, 16, device="meta"),) * 3)

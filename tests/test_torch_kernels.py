@@ -16,6 +16,7 @@ from repro.kernels.pdist import pairwise_sqdist_pallas
 from repro.kernels.spmv_bell import csr_to_block_ell as ref_csr_to_bell
 from repro.kernels.spmv_bell import spmv_block_ell as ref_spmv_bell
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.pdist import pairwise_sqdist
 from repro_torch.kernels.ref import spmv_block_ell_ref
 from repro_torch.kernels.spmv_bell import csr_to_block_ell, spmv_block_ell
@@ -128,7 +129,8 @@ def test_cpu_path_launches_nothing():
                                        A.data.astype(np.float32), 64)
     spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols),
                    torch.ones(64))
-    assert _build.launches() == {"pdist": 0, "spmv_bell": 0}
+    flash_attention(*(torch.ones(1, 2, 16, 16),) * 3)
+    assert _build.launches() == {"pdist": 0, "spmv_bell": 0, "flash": 0}
 
 
 def test_kernel_build_is_keyed_by_source_hash():
