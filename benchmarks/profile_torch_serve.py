@@ -28,7 +28,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 CLASSES = (                      # first match wins
-    ("flash", re.compile(r"flash_fwd")),
+    ("flash", re.compile(r"flash_fwd|flash_sm90")),
     ("gemm", re.compile(r"gemm|gemv|nvjet|sm90_xmma|cutlass|cublas",
                         re.I)),
     ("softmax", re.compile(r"softmax", re.I)),
@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     tag = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     cfg = get_config("qwen1.5-0.5b")
     B, S, n_dec = args.batch, args.prompt_len, args.decode_steps
-    _build.build_all(["flash"])
+    _build.build_all(["flash", "flash_sm90"])
     model = init_model(cfg, seed=args.seed, device=dev)
     toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
         0, cfg.vocab, size=(B, S + n_dec), dtype=np.int32)).to(dev)

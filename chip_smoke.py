@@ -16,21 +16,29 @@ Phases (any failure exits non-zero and prints no result line):
   5. sparse numbers: phase seconds, CG iterations, per-iteration and
      per-matvec times, pdist and spmv_bell at their main-path shapes
      beside their plain versions, a library call and their bounds;
-  6. hold the flash kernel against its plain version (f32 and bf16, the
-     reference test shapes, GQA cases, every head dim it is built for and
-     the serving shape), and show that the LM's causal attention reaches
-     it at a length that is not a tile multiple;
+  6. hold both flash kernels against their plain version and check the
+     route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
+     (tensor cores), f32 and bf16 with head dim 16 or 80 to flash (CUDA
+     cores); the reference test shapes, GQA, Sq != Sk, S below one tile,
+     every head dim, the serving shape and the float32 shapes of phase 8;
+     and show that the LM's causal attention reaches flash at a length that
+     is not a tile multiple;
   7. LM serving at the full width of qwen1.5-0.5b (random weights from a
      seed): batch 8, prompt 2048, 32 generated tokens through
      ``repro_torch.launch.serve.serve_tokens``; the counts are reset just
-     before and read just after, and the prefill must launch flash once
-     per layer and the decode loop never;
+     before and read just after, and the prefill must launch flash_sm90
+     once per layer and flash never, the decode loop neither;
   8. whole-model consistency in float32: last-token logits of a 2048-token
      prefill (flash attention) against a 1920-token prefill plus 128
      teacher-forced decode steps (plain decode attention), within 1e-3 of
-     the largest |logit|;
-  9. flash at the serving shape beside its plain version, SDPA and its
-     bound; peak device memory; then the ``{"kernels": [...]}`` line;
+     the largest |logit|; the counts are reset just before and read just
+     after, and this path must launch flash (the f32 route), never
+     flash_sm90;
+  9. each flash kernel at the shape its path gives it (flash_sm90: the
+     serving shape in bf16; flash: phase 8's float32 prefill) beside its
+     plain version, SDPA and its bound, and the old kernel also at the
+     bf16 serving shape, in turns with flash_sm90; peak device memory; then
+     the ``{"kernels": [...]}`` line;
  10. last line: ``{"ok": true, "device": {...}}``.
 
 Numbers are JSON lines tagged with the card's name and power limit.
@@ -107,6 +115,12 @@ def close(got, want, atol: float, rtol: float) -> tuple[bool, float]:
     return ok, float(err.max())
 
 
+def limit_share(got, want, atol: float, rtol: float) -> float:
+    """The largest error as a share of its limit ``atol + rtol |want|``."""
+    err = (got.double() - want.double()).abs()
+    return float((err / (atol + rtol * want.double().abs())).max())
+
+
 def sparse_path(args, dev, gen, emit) -> list[dict]:
     """Phases 3-5: pdist and spmv_bell against their plain versions, the
     sparse path at full size, its numbers.  Returns the two kernel rows."""
@@ -132,15 +146,22 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
 
     # ---- 3. kernels against their plain versions ------------------------
     errs = {}
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        x = torch.randn(1 << 20, 2, generator=gen, device=dev).to(dt)
-        c = torch.randn(8, 2, generator=gen, device=dev).to(dt)
-        ok, err = close(pairwise_sqdist(x, c), pairwise_sqdist_ref(x, c),
-                        tol, tol)
-        emit(check="pdist", dtype=str(dt), n=1 << 20, k=8, d=2,
-             max_abs_err=err, tol=tol, ok=ok)
-        check(ok, f"pdist {dt} disagrees with its plain version: {err}")
-        errs.setdefault("pdist", err)
+    # k = 8, d = 2: the main path's shape (16-byte stores, d = 2 kernel);
+    # k = 7, d = 3: scalar stores and the d = 3 kernel; d = 5 and 8: the
+    # generic d loop, with k > 1024 centres staged in two chunks, once with
+    # scalar and once with 16-byte stores
+    for (n, k, d) in ((1 << 20, 8, 2), (1 << 20, 7, 3), (1 << 16, 1030, 5),
+                      (1 << 14, 2048, 8)):
+        for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            x = torch.randn(n, d, generator=gen, device=dev).to(dt)
+            c = torch.randn(k, d, generator=gen, device=dev).to(dt)
+            ok, err = close(pairwise_sqdist(x, c),
+                            pairwise_sqdist_ref(x, c), tol, tol)
+            emit(check="pdist", dtype=str(dt), n=n, k=k, d=d,
+                 max_abs_err=err, tol=tol, ok=ok)
+            check(ok, f"pdist {dt} {(n, k, d)} disagrees with its plain "
+                      f"version: {err}")
+            errs.setdefault("pdist", err)
     g256 = grid((256, 256))
     ip, ix, dat = laplacian_csr(g256, shift=1e-2)
     A256 = sp.csr_matrix((dat, ix, ip), shape=(g256.n, g256.n))
@@ -254,6 +275,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     rows = []
     pd_bytes = (coords.numel() + centers.numel() + n_pts * 8) * 4
     pd_bound, pd_by = bound_ms(pd_bytes, (6 * d + 2) * n_pts * 8)
+    fill = torch.empty(n_pts, 8, device=dev)
     rows.append(dict(
         name="pdist", route="cuda",
         source="src/repro_torch/kernels/csrc/pdist.cu",
@@ -263,7 +285,10 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
         plain_ms=event_ms(lambda: pairwise_sqdist_ref(coords, centers)),
         bound_ms=pd_bound, bound_by=pd_by, library_ms=None,
         cdist_ms=event_ms(lambda: torch.cdist(coords, centers), inner=20),
+        # a yardstick for the output stream alone: fill the (n, 8) result
+        fill_ms=event_ms(lambda: fill.fill_(1.0), inner=20),
         shape=[n_pts, 8, d]))
+    del fill
 
     # the same function as one library call: the interior matrix of every
     # PU block as one block-diagonal CSR tensor
@@ -303,15 +328,16 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     return rows
 
 
-def lm_path(args, dev, gen, emit) -> dict:
-    """Phases 6-9: the flash kernel against its plain version, LM serving
-    at the full width of qwen1.5-0.5b, float32 prefill/decode consistency,
-    flash's numbers.  Returns the flash kernel row."""
+def lm_path(args, dev, gen, emit) -> list[dict]:
+    """Phases 6-9: both flash kernels against their plain version, LM
+    serving at the full width of qwen1.5-0.5b, float32 prefill/decode
+    consistency, the flash kernels' numbers.  Returns their two rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash as flash_mod
     from repro_torch.kernels.flash import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch.serve import serve_tokens
@@ -322,51 +348,89 @@ def lm_path(args, dev, gen, emit) -> dict:
     cfg = get_config("qwen1.5-0.5b")
     B, S = 8, args.prompt_len
     H, D = cfg.n_heads, cfg.head_dim
+    kernels = ("flash", "flash_sm90")
+
+    def routed(dt, d):
+        return ("flash_sm90" if dt == torch.bfloat16
+                and d in flash_mod.SM90_HEAD_DIMS else "flash")
+
+    def launched():
+        n = _build.launches()
+        return {name: n[name] for name in kernels}
 
     # ---- 6. flash against its plain version ------------------------------
     # f32: the reference test's 2e-3 (tests/test_kernels.py); bf16: 8e-3
-    # absolute and relative, two bf16 ulps of an output below 1 (both
-    # versions keep the softmax in f32 and round only the output)
+    # absolute and relative, two bf16 ulps of an output below 1.  flash
+    # keeps the softmax weights in f32 and rounds only the output;
+    # flash_sm90 also rounds P to bf16 before the PV product (at most 0.49
+    # of this limit in tests/test_torch_flash.py's emulation).
     tols = {torch.float32: 2e-3, torch.bfloat16: 8e-3}
-    cases = [(2, 4, 4, 256, 64, True, torch.float32),
-             (1, 2, 2, 128, 64, True, torch.float32),
-             (1, 2, 2, 128, 64, False, torch.float32),
-             (1, 2, 2, 384, 64, True, torch.float32),
-             (1, 2, 2, 384, 64, False, torch.float32),
-             (2, 8, 2, 256, 64, True, torch.float32),
-             (1, 4, 4, 256, 16, True, torch.float32),
-             (1, 4, 2, 256, 80, True, torch.float32),
-             (1, 4, 1, 256, 128, False, torch.float32),
-             (2, 8, 2, 256, 64, True, torch.bfloat16),
-             (B, H, H, S, D, True, torch.bfloat16)]
-    for b, h, hkv, s, d, causal, dt in cases:
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [  # (b, h, hkv, sq, sk, d, causal, dtype)
+        (2, 4, 4, 256, 256, 64, True, f32),
+        (1, 2, 2, 128, 128, 64, True, f32),
+        (1, 2, 2, 128, 128, 64, False, f32),
+        (1, 2, 2, 384, 384, 64, True, f32),
+        (1, 2, 2, 384, 384, 64, False, f32),
+        (2, 8, 2, 256, 256, 64, True, f32),
+        (1, 4, 4, 256, 256, 16, True, f32),
+        (1, 4, 2, 256, 256, 80, True, f32),
+        (1, 4, 1, 256, 256, 128, False, f32),
+        (1, 4, 4, 256, 256, 16, True, bf16),
+        (1, 4, 2, 256, 256, 80, True, bf16),
+        (2, 8, 2, 256, 256, 64, True, bf16),
+        (2, 8, 2, 1024, 1024, 128, True, bf16),
+        (1, 4, 4, 128, 384, 64, False, bf16),
+        (1, 4, 4, 128, 384, 128, False, bf16),
+        (1, 4, 4, 64, 64, 64, True, bf16),
+        (1, 4, 4, 64, 64, 128, True, bf16),
+        (B, H, H, S, S, D, True, bf16),
+        # phase 8's float32 prefills, the old kernel's path
+        (4, H, H, S - 128, S - 128, D, True, f32),
+        (4, H, H, S, S, D, True, f32)]
+    errs = {}
+    for case in cases:
+        b, h, hkv, sq, sk, d, causal, dt = case
         # (B, S, H, D) buffers seen as (B, H, S, D): the layout gqa_attend
         # hands the kernel
-        q, k, v = (torch.randn(b, s, hh, d, generator=gen, device=dev)
-                   .to(dt).transpose(1, 2) for hh in (h, hkv, hkv))
+        q = torch.randn(b, sq, h, d, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev)
+                .to(dt).transpose(1, 2) for _ in range(2))
+        q = q.transpose(1, 2)
         tol = tols[dt]
-        ok, err = close(flash_attention(q, k, v, causal=causal),
-                        flash_attention_ref(q, k, v, causal=causal),
-                        tol, tol)
-        emit(check="flash", shape=[b, h, s, d], kv_heads=hkv, causal=causal,
-             dtype=str(dt), max_abs_err=err, tol=tol, ok=ok)
-        check(ok, f"flash {(b, h, hkv, s, d, causal, dt)} disagrees with "
-                  f"its plain version: {err}")
-    flash_err = err                 # the serving shape, the last case
+        n0 = launched()
+        got = flash_attention(q, k, v, causal=causal)
+        n = {name: launched()[name] - n0[name] for name in kernels}
+        want = flash_attention_ref(q, k, v, causal=causal)
+        ok, err = close(got, want, tol, tol)
+        want_kernel = routed(dt, d)
+        emit(check="flash", shape=[b, h, sq, d], sk=sk, kv_heads=hkv,
+             causal=causal, dtype=str(dt), kernel=want_kernel, launches=n,
+             max_abs_err=err, tol=tol,
+             limit_share=limit_share(got, want, tol, tol), ok=ok)
+        check(n == {name: int(name == want_kernel) for name in kernels},
+              f"flash {(b, h, hkv, sq, sk, d, causal, dt)} launched {n}, "
+              f"want one {want_kernel}")
+        check(ok, f"flash {(b, h, hkv, sq, sk, d, causal, dt)} disagrees "
+                  f"with its plain version: {err}")
+        errs[case] = err
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
 
     # the LM's causal attention at a length that is no tile multiple: one
     # flash launch (on zero-padded tensors), never the plain chunked loop
     for s, dt in ((200, torch.float32), (1000, torch.bfloat16)):
         q, k, v = (torch.randn(2, s, H, D, generator=gen, device=dev).to(dt)
                    for _ in range(3))
-        n0 = _build.launches()["flash"]
+        n0 = launched()
         got = gqa_attend(q, k, v)
-        n = _build.launches()["flash"] - n0
+        n = {name: launched()[name] - n0[name] for name in kernels}
         want = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
         ok, err = close(got, want.transpose(1, 2), tols[dt], tols[dt])
         emit(check="flash_ragged", shape=[2, s, H, D], dtype=str(dt),
-             flash_launches=n, max_abs_err=err, tol=tols[dt], ok=ok)
-        check(n == 1, f"gqa_attend at S={s} launched flash {n} times")
+             launches=n, max_abs_err=err, tol=tols[dt], ok=ok)
+        check(sum(n.values()) == 1 and n[routed(dt, D)] == 1,
+              f"gqa_attend at S={s} launched {n}")
         check(ok, f"gqa_attend at S={s} {dt} disagrees with the plain "
                   f"attention: {err}")
     torch.cuda.synchronize()
@@ -396,15 +460,17 @@ def lm_path(args, dev, gen, emit) -> dict:
     check(finite, "serving: non-finite logits")
     check(((ids >= 0) & (ids < cfg.vocab)).all(),
           "serving: sampled ids outside [0, vocab)")
-    check(r["launches_prefill"]["flash"] == cfg.n_layers,
-          f"serving: {r['launches_prefill']['flash']} flash launches in "
-          f"the prefill, want {cfg.n_layers}")
-    check(r["launches_decode"]["flash"] == 0,
-          "serving: the decode loop launched flash")
-    check(lm_launches["flash"] == cfg.n_layers,
-          f"the LM path launched flash {lm_launches['flash']} times")
-    per_prefill = r["launches_prefill"]["flash"]
-    per_decode_step = r["launches_decode"]["flash"] / r["gen"]
+    pre, dec = r["launches_prefill"], r["launches_decode"]
+    check(pre["flash_sm90"] == cfg.n_layers and pre["flash"] == 0,
+          f"serving: the prefill launched flash_sm90 {pre['flash_sm90']} "
+          f"and flash {pre['flash']} times, want {cfg.n_layers} and 0")
+    check(dec["flash_sm90"] == 0 and dec["flash"] == 0,
+          "serving: the decode loop launched a flash kernel")
+    check(lm_launches["flash_sm90"] == cfg.n_layers,
+          f"the LM path launched flash_sm90 {lm_launches['flash_sm90']} "
+          f"times")
+    per_prefill = pre["flash_sm90"]
+    per_decode_step = dec["flash_sm90"] / r["gen"]
     del r
     torch.cuda.empty_cache()
 
@@ -414,42 +480,82 @@ def lm_path(args, dev, gen, emit) -> dict:
     n_dec = 128
     toks = torch.from_numpy(np.random.default_rng(args.seed + 2).integers(
         0, cfg.vocab, size=(4, S), dtype=np.int32)).to(dev)
+    _build.reset_launches()
     t0 = time.perf_counter()
     full, _ = prefill_forward(m32, cfg32, toks, cache_len=S)
     logits, cache = prefill_forward(m32, cfg32, toks[:, :S - n_dec],
                                     cache_len=S)
     for t in range(S - n_dec, S):
         logits, cache = decode_step(m32, cfg32, cache, toks[:, t:t + 1], t)
+    f32_launches = _build.launches()
     scale = float(full.abs().max())
     rel = float((full - logits).abs().max()) / scale
     emit(phase="lm_consistency_f32", batch=4, prefill=S,
          prefill_then_decode=[S - n_dec, n_dec], max_abs_logit=scale,
-         rel_err=rel, tol=1e-3, seconds=time.perf_counter() - t0)
+         rel_err=rel, tol=1e-3, launches=f32_launches,
+         seconds=time.perf_counter() - t0)
     check(rel < 1e-3, f"f32 prefill vs prefill+decode logits differ by "
                       f"{rel} of the largest |logit|")
+    check(f32_launches["flash"] == 2 * cfg.n_layers
+          and f32_launches["flash_sm90"] == 0,
+          f"the f32 prefills launched {f32_launches}, want flash "
+          f"{2 * cfg.n_layers} times and flash_sm90 never")
     del m32, cache, full, logits
     torch.cuda.empty_cache()
 
-    # ---- 9. flash at the serving shape: times, bound --------------------
+    # ---- 9. flash kernels at their paths' shapes: times, bounds ---------
+    def flash_row(name, shape, dt, n_launches, inner):
+        """Times of the kernel that ``flash_attention`` routes ``shape``
+        causal in ``dt`` to, its plain version, SDPA and its bound."""
+        b, h, s, d = shape
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(dt).transpose(1, 2) for _ in range(3))
+        nbytes = 4 * q.numel() * q.element_size()     # q, k, v in; o out
+        flops = 4 * b * h * d * s * (s + 1) / 2       # QK^T and PV, causal
+        bound, by = bound_ms(nbytes, flops, str(dt).split(".")[1])
+        return dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/" + _build.SOURCES[name],
+            replaces="src/repro/kernels/flash.py:74", launches=n_launches,
+            max_abs_err=errs[(b, h, h, s, s, d, True, dt)],
+            ms=event_ms(lambda: flash_attention(q, k, v), inner=inner),
+            plain_ms=event_ms(lambda: flash_attention_ref(q, k, v), reps=5),
+            bound_ms=bound, bound_by=by,
+            library_ms=event_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), inner=inner),
+            shape=list(shape), dtype=str(dt).split(".")[1], causal=True)
+
+    sm90_row = flash_row("flash_sm90", (B, H, S, D), torch.bfloat16,
+                         lm_launches["flash_sm90"], inner=10)
+    sm90_row.update(launches_per_prefill=per_prefill,
+                    launches_per_decode_step=per_decode_step,
+                    max_memory_allocated_serving=peak)
+    simt_row = flash_row("flash", (4, H, S, D), torch.float32,
+                         f32_launches["flash"], inner=5)
+    simt_row["launches_path"] = "lm_consistency_f32"
+
+    # the old kernel on the new one's serving-shape tensors, in turns:
+    # tensor cores, CUDA cores, CUDA cores, tensor cores
     q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev)
                .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    nbytes = 4 * q.numel() * q.element_size()     # q, k, v in; o out
-    flops = 4 * B * H * D * S * (S + 1) / 2       # QK^T and PV, causal
-    f_bound, f_by = bound_ms(nbytes, flops, "bfloat16")
-    return dict(
-        name="flash", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attn.cu",
-        replaces="src/repro/kernels/flash.py:74",
-        launches=lm_launches["flash"], max_abs_err=flash_err,
-        ms=event_ms(lambda: flash_attention(q, k, v), inner=5),
-        plain_ms=event_ms(lambda: flash_attention_ref(q, k, v), reps=5),
-        bound_ms=f_bound, bound_by=f_by,
-        library_ms=event_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), inner=10),
-        shape=[B, H, S, D], dtype="bfloat16", causal=True,
-        launches_per_prefill=per_prefill,
-        launches_per_decode_step=per_decode_step,
-        max_memory_allocated_serving=peak)
+    want = flash_attention_ref(q, k, v)
+    tol = tols[torch.bfloat16]
+    got = flash_mod._launch("flash", q, k, v, True)
+    ok, simt_err = close(got, want, tol, tol)
+    emit(check="flash_simt_serving_shape", max_abs_err=simt_err, tol=tol,
+         limit_share=limit_share(got, want, tol, tol), ok=ok)
+    check(ok, f"flash (CUDA cores) at the serving shape: {simt_err}")
+    del want, got
+    sm90_ms = [event_ms(lambda: flash_attention(q, k, v), inner=10)]
+    simt_ms = [event_ms(lambda: flash_mod._launch("flash", q, k, v, True),
+                        inner=5) for _ in range(2)]
+    sm90_ms.append(event_ms(lambda: flash_attention(q, k, v), inner=10))
+    sm90_row["ms_turns_vs_flash"] = sm90_ms
+    simt_row.update(ms_at_serving_shape_bf16=statistics.median(simt_ms),
+                    ms_turns_at_serving_shape_bf16=simt_ms,
+                    max_abs_err_at_serving_shape_bf16=simt_err)
+    return [sm90_row, simt_row]
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -492,7 +598,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rows = sparse_path(args, dev, gen, emit)
     torch.cuda.empty_cache()
-    rows.append(lm_path(args, dev, gen, emit))
+    rows += lm_path(args, dev, gen, emit)
 
     print(json.dumps({"kernels": rows}))
     print(smi())

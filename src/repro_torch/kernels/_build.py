@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 SOURCES = {"pdist": "pdist.cu", "spmv_bell": "spmv_bell.cu",
-           "flash": "flash_attn.cu"}
+           "flash": "flash_attn.cu", "flash_sm90": "flash_attn_sm90.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -35,14 +35,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
-# launcher name -> argtypes; every launcher returns a cudaError_t as int
+_FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P)
+# library -> launcher name -> argtypes; every launcher returns a
+# cudaError_t as int
 SIGNATURES = {
-    "pdist_f32": (_P, _P, _P, _L, _I, _I, _P),
-    "pdist_bf16": (_P, _P, _P, _L, _I, _I, _P),
-    "spmv_bell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
-    "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
-    "flash_attn_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P),
-    "flash_attn_bf16": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P),
+    "pdist": {"pdist_f32": (_P, _P, _P, _L, _I, _I, _P),
+              "pdist_bf16": (_P, _P, _P, _L, _I, _I, _P)},
+    "spmv_bell": {
+        "spmv_bell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
+        "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P)},
+    "flash": {"flash_attn_f32": _FLASH, "flash_attn_bf16": _FLASH},
+    "flash_sm90": {"flash_sm90_bf16": _FLASH},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -74,11 +77,10 @@ def library_path(name: str) -> Path:
 
 def _load(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES.items():
-        if fn.startswith(name + "_"):
-            f = getattr(lib, fn)
-            f.argtypes = list(argtypes)
-            f.restype = ctypes.c_int
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
     _LIBS[name] = lib
     return lib
 
@@ -88,31 +90,33 @@ def build_all(names=None) -> dict[str, float]:
     processes started together.  Returns the seconds each build took (0.0
     for a library found already built)."""
     import time
+    from concurrent.futures import ThreadPoolExecutor
 
     names = list(SOURCES) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {}
-    for name in names:
-        if name in _LIBS:
-            continue
+    todo = [name for name in names
+            if name not in _LIBS and not library_path(name).exists()]
+
+    def compile_one(name):
         path = library_path(name)
-        if not path.exists():
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   str(CSRC / SOURCES[name])]
-            todo[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT,
-                                           text=True), tmp, path,
-                          time.perf_counter())
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(CSRC / SOURCES[name])],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        if proc.returncode == 0:
+            os.replace(tmp, path)       # atomic: a reader never sees half
+        return proc, time.perf_counter() - t0
+
     seconds = {name: 0.0 for name in names}
     errors = []
-    for name, (proc, tmp, path, t0) in todo.items():
-        out, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
+    with ThreadPoolExecutor(max_workers=max(len(todo), 1)) as pool:
+        done = dict(zip(todo, pool.map(compile_one, todo)))
+    for name, (proc, secs) in done.items():
+        seconds[name] = secs
         if proc.returncode != 0:
-            errors.append(f"{SOURCES[name]}:\n{out}")
-            continue
-        os.replace(tmp, path)           # atomic: a reader never sees half
+            errors.append(f"{SOURCES[name]}:\n{proc.stdout}")
     if errors:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
     for name in names:

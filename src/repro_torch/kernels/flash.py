@@ -1,15 +1,24 @@
 """Flash attention forward (online softmax), the LM stack's attention
 kernel.
 
-``flash_attention`` launches the hand-written CUDA kernel
-``csrc/flash_attn.cu`` for tensors on the card.  It replaces the Pallas TPU
-kernel ``src/repro/kernels/flash.py::flash_attention`` (body
-``_flash_kernel``) and keeps its contract: (B, H, S, D) in, (B, H, S, D) out
-in q's dtype, scale ``D^-1/2``, float32 softmax state, tiles of
-``min(128, S)`` rows that must divide S.  The kernel tiles the work its own
-way (the design note is in the source).  Beyond the TPU kernel, k and v may
-have fewer heads than q (``Hkv`` dividing ``H``); the kernel reads kv head
-``h // (H // Hkv)`` by index.
+``flash_attention`` launches one of two hand-written CUDA kernels for
+tensors on the card, picked by :func:`flash_route` from dtype and head dim
+alone:
+
+* ``flash_sm90`` (``csrc/flash_attn_sm90.cu``): bf16 with head dim 64 or
+  128, both products on the tensor cores (wgmma) with TMA-fed tiles; P is
+  rounded to bf16 before the PV product;
+* ``flash`` (``csrc/flash_attn.cu``): float32 (every head dim) and bf16
+  with head dim 16 or 80, float32 FMAs on the CUDA cores.
+
+Both replace the Pallas TPU kernel
+``src/repro/kernels/flash.py::flash_attention`` (body ``_flash_kernel``)
+and keep its contract: (B, H, S, D) in, (B, H, S, D) out in q's dtype,
+scale ``D^-1/2``, float32 softmax state, tiles of ``min(128, S)`` rows that
+must divide S.  Each kernel tiles the work its own way (the design notes
+are in the sources).  Beyond the TPU kernel, k and v may have fewer heads
+than q (``Hkv`` dividing ``H``); the kernels read kv head ``h // (H //
+Hkv)`` by index.
 
 Inputs are read through their strides (the last axis contiguous), so a
 (B, S, H, D) buffer passed as ``x.transpose(1, 2)`` is read in place, and
@@ -19,7 +28,7 @@ back without a transpose copy.
 
 Tensors on the CPU go to the plain version
 (:func:`.ref.flash_attention_ref`); on any other device the wrapper
-launches the kernel or raises.
+launches the kernel its route names or raises.
 """
 from __future__ import annotations
 
@@ -32,7 +41,42 @@ from .ref import flash_attention_ref
 
 TILE = 128                        # the TPU kernel's bq = bk
 HEAD_DIMS = (16, 64, 80, 128)     # the dense configs' head dims
+SM90_HEAD_DIMS = (64, 128)        # bf16 head dims of flash_sm90
 _FN = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
+
+
+def flash_route(dtype: torch.dtype, head_dim: int, byte_strides,
+                pointers) -> str:
+    """The kernel library that takes a CUDA call: ``"flash_sm90"`` for
+    bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, ``"flash"``
+    otherwise.  The route depends on dtype and head dim alone.
+
+    For ``flash_sm90`` the tensors must meet TMA's contract, else this
+    raises ``ValueError`` (never another route): the head dim contiguous,
+    every base pointer and every outer byte stride a multiple of 16.
+    ``byte_strides`` holds, for each of q, k and v, the byte strides of its
+    four axes, None for an axis of size 1 (whose stride is never used);
+    ``pointers`` holds their data pointers."""
+    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
+        return "flash"
+    for name, st, ptr in zip("qkv", byte_strides, pointers):
+        if st[-1] != 2:
+            raise ValueError(f"flash_attention: {name}'s head dim is not "
+                             f"contiguous (byte stride {st[-1]})")
+        if ptr % 16:
+            raise ValueError(f"flash_attention: {name}'s data pointer is "
+                             f"not 16-byte aligned, as TMA needs")
+        bad = [s for s in st[:-1] if s is not None and s % 16]
+        if bad:
+            raise ValueError(f"flash_attention: {name}'s byte strides "
+                             f"{tuple(st)} are not multiples of 16, as "
+                             f"TMA needs")
+    return "flash_sm90"
+
+
+def _byte_strides(t: torch.Tensor) -> tuple:
+    return tuple(None if n == 1 else s * t.element_size()
+                 for n, s in zip(t.shape, t.stride()))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,18 +113,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("flash_attention: the head dim must be contiguous")
-    if B * H > 65535:
+    name = flash_route(q.dtype, D, [_byte_strides(t) for t in (q, k, v)],
+                       [t.data_ptr() for t in (q, k, v)])
+    return _launch(name, q, k, v, causal)
+
+
+def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    """Launch kernel library ``name`` (``"flash"`` or ``"flash_sm90"``) on
+    CUDA tensors that :func:`flash_attention` has checked."""
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if name == "flash" and B * H > 65535:
         raise ValueError(f"flash_attention: B*H={B * H} exceeds the grid")
     out = torch.empty_like(q)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3])
-    fn_name = _FN[q.dtype]
-    fn = _build.launcher("flash", fn_name)
+
+    def outer(t):
+        # element strides of b, h, s; an axis of size 1 is only ever
+        # indexed at 0, so it gets D, which TMA also accepts
+        return [st if n > 1 else D for n, st in zip(t.shape[:3],
+                                                     t.stride()[:3])]
+
+    strides = (ctypes.c_longlong * 12)(*outer(q), *outer(k), *outer(v),
+                                       *outer(out))
+    fn_name = "flash_sm90_bf16" if name == "flash_sm90" else _FN[q.dtype]
+    fn = _build.launcher(name, fn_name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, Hkv, Sq, Sk, D, strides, int(causal), stream)
     _build.check(err, fn_name)
-    _build.count("flash")
+    _build.count(name)
     return out

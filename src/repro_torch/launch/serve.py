@@ -89,7 +89,7 @@ def serve_tokens(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                            dtype=np.int32)
     tokens = torch.from_numpy(prompts).to(dev)
     if dev.type == "cuda":
-        _build.build_all(["flash"])           # set-up, not prefill time
+        _build.build_all(["flash", "flash_sm90"])  # set-up, not prefill
 
     before = _build.launches()
     with _Timer(dev) as t_prefill:

@@ -25,7 +25,8 @@ _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
 @pytest.mark.parametrize("n,k,d", [(32, 8, 2), (100, 7, 3), (257, 33, 2),
-                                   (512, 128, 3), (65, 1, 2)])
+                                   (512, 128, 3), (65, 1, 2), (40, 12, 5),
+                                   (33, 4, 8)])
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_pdist_matches_pallas(n, k, d, dtype):
     rng = np.random.default_rng(n + k)
@@ -130,7 +131,8 @@ def test_cpu_path_launches_nothing():
     spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols),
                    torch.ones(64))
     flash_attention(*(torch.ones(1, 2, 16, 16),) * 3)
-    assert _build.launches() == {"pdist": 0, "spmv_bell": 0, "flash": 0}
+    assert _build.launches() == {"pdist": 0, "spmv_bell": 0, "flash": 0,
+                                 "flash_sm90": 0}
 
 
 def test_kernel_build_is_keyed_by_source_hash():
@@ -139,3 +141,13 @@ def test_kernel_build_is_keyed_by_source_hash():
     assert p1.parent == p2.parent == _build.BUILD_DIR
     assert p1.name.startswith("libpdist-") and p1 != p2
     assert _build.library_path("pdist") == p1          # stable
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_every_launcher_is_defined_in_its_source(name):
+    """Each library's ctypes signatures name ``extern "C"`` launchers of
+    its own source, so loading a library never looks up a missing one."""
+    src = (_build.CSRC / _build.SOURCES[name]).read_text()
+    assert _build.SIGNATURES[name]
+    for fn in _build.SIGNATURES[name]:
+        assert f'extern "C" int {fn}(' in src
