@@ -1,9 +1,10 @@
 """Where the time of the port's LM token serving goes, on one GPU.
 
-    python3 benchmarks/profile_torch_serve.py [--batch 8] [--prompt-len 2048]
-        [--decode-steps 32] [--seed 0]
+    python3 benchmarks/profile_torch_serve.py [--arch qwen1.5-0.5b]
+        [--batch 8] [--prompt-len 2048] [--decode-steps 32] [--seed 0]
 
-Builds qwen1.5-0.5b at full width (random weights from a seed), warms up,
+Builds a dense config (qwen1.5-0.5b by default, or stablelm-3b) at full
+width and depth (random weights from a seed), warms up,
 then traces one prefill and ``--decode-steps`` decode steps with
 ``torch.profiler`` (CPU and CUDA activities), each phase in its own
 session.  For each phase it prints one JSON line: wall time (CUDA events,
@@ -47,6 +48,8 @@ def classify(name: str) -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen1.5-0.5b",
+                    choices=("qwen1.5-0.5b", "stablelm-3b"))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--decode-steps", type=int, default=32)
@@ -72,7 +75,7 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     tag = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
-    cfg = get_config("qwen1.5-0.5b")
+    cfg = get_config(args.arch)
     B, S, n_dec = args.batch, args.prompt_len, args.decode_steps
     _build.build_all(["flash", "flash_sm90"])
     model = init_model(cfg, seed=args.seed, device=dev)

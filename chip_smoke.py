@@ -18,27 +18,30 @@ Phases (any failure exits non-zero and prints no result line):
      beside their plain versions, a library call and their bounds;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
-     (tensor cores), f32 and bf16 with head dim 16 or 80 to flash (CUDA
-     cores); the reference test shapes, GQA, Sq != Sk, S below one tile,
-     every head dim, the serving shape and the float32 shapes of phase 8;
-     and show that the LM's causal attention reaches flash at a length that
-     is not a tile multiple;
+     (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
+     + cp.async; bf16, and f32 as 3xTF32); the reference test shapes,
+     every head dim in both of flash's dtypes, causal and not, GQA, Sq !=
+     Sk, S below one tile and off a tile multiple, stablelm-3b's prefill
+     shape and the float32 shapes of phase 8; and show that the LM's causal
+     attention reaches flash at a length that is not a tile multiple;
   7. LM serving at the full width of qwen1.5-0.5b (random weights from a
      seed): batch 8, prompt 2048, 32 generated tokens through
      ``repro_torch.launch.serve.serve_tokens``; the counts are reset just
      before and read just after, and the prefill must launch flash_sm90
      once per layer and flash never, the decode loop neither;
+  7b. the same at the full width and depth of stablelm-3b (head dim 80,
+     layernorm), the path of flash in bf16: the prefill must launch flash
+     once per layer and flash_sm90 never, the decode loop neither;
   8. whole-model consistency in float32: last-token logits of a 2048-token
      prefill (flash attention) against a 1920-token prefill plus 128
      teacher-forced decode steps (plain decode attention), within 1e-3 of
      the largest |logit|; the counts are reset just before and read just
      after, and this path must launch flash (the f32 route), never
      flash_sm90;
-  9. each flash kernel at the shape its path gives it (flash_sm90: the
-     serving shape in bf16; flash: phase 8's float32 prefill) beside its
-     plain version, SDPA and its bound, and the old kernel also at the
-     bf16 serving shape, in turns with flash_sm90; peak device memory; then
-     the ``{"kernels": [...]}`` line;
+  9. each flash kernel at the shapes its paths give it (flash_sm90: qwen's
+     prefill in bf16; flash: stablelm-3b's prefill in bf16 and phase 8's
+     float32 prefill) beside its plain version, SDPA and its bound; peak
+     device memory; then the ``{"kernels": [...]}`` line;
  10. last line: ``{"ok": true, "device": {...}}``.
 
 Numbers are JSON lines tagged with the card's name and power limit.
@@ -62,6 +65,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 PEAK_FLOPS = {                   # H100 SXM data sheet, dense
     "float32": 67e12,            # float32 outside the tensor cores
     "bfloat16": 989e12,          # bf16 tensor cores
+    "tf32": 495e12,              # TF32 tensor cores
 }
 
 
@@ -330,8 +334,9 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
 
 def lm_path(args, dev, gen, emit) -> list[dict]:
     """Phases 6-9: both flash kernels against their plain version, LM
-    serving at the full width of qwen1.5-0.5b, float32 prefill/decode
-    consistency, the flash kernels' numbers.  Returns their two rows."""
+    serving at the full width of qwen1.5-0.5b and of stablelm-3b, float32
+    prefill/decode consistency, the flash kernels' numbers.  Returns their
+    two rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -360,12 +365,14 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
 
     # ---- 6. flash against its plain version ------------------------------
     # f32: the reference test's 2e-3 (tests/test_kernels.py); bf16: 8e-3
-    # absolute and relative, two bf16 ulps of an output below 1.  flash
-    # keeps the softmax weights in f32 and rounds only the output;
-    # flash_sm90 also rounds P to bf16 before the PV product (at most 0.49
-    # of this limit in tests/test_torch_flash.py's emulation).
+    # absolute and relative, two bf16 ulps of an output below 1.  Both
+    # kernels round P to bf16 before the PV product in bf16 (at most 0.49 of
+    # this limit in tests/test_torch_flash.py's emulation); flash in f32
+    # computes in 3xTF32 (within 1e-5 of the plain version in that file).
     tols = {torch.float32: 2e-3, torch.bfloat16: 8e-3}
     f32, bf16 = torch.float32, torch.bfloat16
+    cfg_sl = get_config("stablelm-3b")
+    H_sl, D_sl = cfg_sl.n_heads, cfg_sl.head_dim
     cases = [  # (b, h, hkv, sq, sk, d, causal, dtype)
         (2, 4, 4, 256, 256, 64, True, f32),
         (1, 2, 2, 128, 128, 64, True, f32),
@@ -374,10 +381,21 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         (1, 2, 2, 384, 384, 64, False, f32),
         (2, 8, 2, 256, 256, 64, True, f32),
         (1, 4, 4, 256, 256, 16, True, f32),
+        (1, 4, 4, 256, 256, 16, False, f32),
         (1, 4, 2, 256, 256, 80, True, f32),
+        (1, 4, 2, 256, 256, 80, False, f32),
         (1, 4, 1, 256, 256, 128, False, f32),
+        (1, 4, 1, 256, 256, 128, True, f32),
+        (1, 4, 2, 128, 384, 80, False, f32),
+        (1, 4, 4, 64, 64, 64, True, f32),
+        (1, 2, 2, 40, 40, 16, True, f32),
         (1, 4, 4, 256, 256, 16, True, bf16),
+        (1, 4, 4, 256, 256, 16, False, bf16),
         (1, 4, 2, 256, 256, 80, True, bf16),
+        (1, 4, 2, 256, 256, 80, False, bf16),
+        (1, 4, 4, 128, 384, 80, False, bf16),
+        (1, 4, 4, 64, 64, 80, True, bf16),
+        (1, 2, 2, 96, 96, 80, True, bf16),
         (2, 8, 2, 256, 256, 64, True, bf16),
         (2, 8, 2, 1024, 1024, 128, True, bf16),
         (1, 4, 4, 128, 384, 64, False, bf16),
@@ -385,7 +403,9 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         (1, 4, 4, 64, 64, 64, True, bf16),
         (1, 4, 4, 64, 64, 128, True, bf16),
         (B, H, H, S, S, D, True, bf16),
-        # phase 8's float32 prefills, the old kernel's path
+        # stablelm-3b's prefill, flash's bf16 path
+        (B, H_sl, H_sl, S, S, D_sl, True, bf16),
+        # phase 8's float32 prefills, flash's f32 path
         (4, H, H, S - 128, S - 128, D, True, f32),
         (4, H, H, S, S, D, True, f32)]
     errs = {}
@@ -435,44 +455,59 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
                   f"attention: {err}")
     torch.cuda.synchronize()
 
-    # ---- 7. LM serving at full width (the main path) ---------------------
-    serve_tokens(cfg, batch=B, prompt_len=S, gen=1, seed=args.seed,
-                 device=dev)        # warm-up: cuBLAS handles, allocator
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    r = serve_tokens(cfg, batch=B, prompt_len=S, gen=32, temperature=0.8,
-                     seed=args.seed, device=dev)
-    serve_s = time.perf_counter() - t0
-    lm_launches = _build.launches()
-    peak = torch.cuda.max_memory_allocated()
-    ids = r["tokens"][:, S:]
-    finite = bool(torch.isfinite(r["logits"].float()).all())
-    emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S, gen=32,
-         prefill_ms=r["prefill_ms"],
-         decode_ms_per_token=r["decode_ms_per_token"],
-         tok_per_s=r["tok_per_s"], seconds=serve_s, launches=lm_launches,
-         launches_prefill=r["launches_prefill"],
-         launches_decode=r["launches_decode"], finite_logits=finite,
-         ids_in_range=bool(((ids >= 0) & (ids < cfg.vocab)).all()),
-         max_memory_allocated=peak, sample_ids=ids[0, :8].tolist())
-    check(finite, "serving: non-finite logits")
-    check(((ids >= 0) & (ids < cfg.vocab)).all(),
-          "serving: sampled ids outside [0, vocab)")
-    pre, dec = r["launches_prefill"], r["launches_decode"]
-    check(pre["flash_sm90"] == cfg.n_layers and pre["flash"] == 0,
-          f"serving: the prefill launched flash_sm90 {pre['flash_sm90']} "
-          f"and flash {pre['flash']} times, want {cfg.n_layers} and 0")
-    check(dec["flash_sm90"] == 0 and dec["flash"] == 0,
-          "serving: the decode loop launched a flash kernel")
-    check(lm_launches["flash_sm90"] == cfg.n_layers,
-          f"the LM path launched flash_sm90 {lm_launches['flash_sm90']} "
-          f"times")
-    per_prefill = pre["flash_sm90"]
-    per_decode_step = dec["flash_sm90"] / r["gen"]
-    del r
-    torch.cuda.empty_cache()
+    # ---- 7, 7b. LM serving at full width (the main path) ------------------
+    def serve_phase(cfg, kernel):
+        """Serve ``cfg`` (batch B, prompt S, 32 generated tokens) after a
+        gen=1 warm-up, with the counts reset just before and read just
+        after.  The prefill must launch ``kernel`` once per layer and the
+        other flash kernel never, the decode loop neither."""
+        other = kernels[1 - kernels.index(kernel)]
+        # warm-up: cuBLAS handles, and the allocator's cache, which the
+        # timed run then reuses (emptying it in between made the prefill
+        # time take in cudaMalloc calls)
+        serve_tokens(cfg, batch=B, prompt_len=S, gen=1, seed=args.seed,
+                     device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        r = serve_tokens(cfg, batch=B, prompt_len=S, gen=32,
+                         temperature=0.8, seed=args.seed, device=dev)
+        serve_s = time.perf_counter() - t0
+        path_launches = _build.launches()
+        peak = torch.cuda.max_memory_allocated()
+        ids = r["tokens"][:, S:]
+        finite = bool(torch.isfinite(r["logits"].float()).all())
+        emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S,
+             gen=32, prefill_ms=r["prefill_ms"],
+             decode_ms_per_token=r["decode_ms_per_token"],
+             tok_per_s=r["tok_per_s"], seconds=serve_s,
+             launches=path_launches, launches_prefill=r["launches_prefill"],
+             launches_decode=r["launches_decode"], finite_logits=finite,
+             ids_in_range=bool(((ids >= 0) & (ids < cfg.vocab)).all()),
+             max_memory_allocated=peak, sample_ids=ids[0, :8].tolist())
+        check(finite, f"serving {cfg.name}: non-finite logits")
+        check(((ids >= 0) & (ids < cfg.vocab)).all(),
+              f"serving {cfg.name}: sampled ids outside [0, vocab)")
+        pre, dec = r["launches_prefill"], r["launches_decode"]
+        check(pre[kernel] == cfg.n_layers and pre[other] == 0,
+              f"serving {cfg.name}: the prefill launched {kernel} "
+              f"{pre[kernel]} and {other} {pre[other]} times, want "
+              f"{cfg.n_layers} and 0")
+        check(dec[kernel] == 0 and dec[other] == 0,
+              f"serving {cfg.name}: the decode loop launched a flash kernel")
+        check(path_launches[kernel] == cfg.n_layers,
+              f"the {cfg.name} path launched {kernel} "
+              f"{path_launches[kernel]} times")
+        out = dict(launches=path_launches[kernel],
+                   launches_per_prefill=pre[kernel],
+                   launches_per_decode_step=dec[kernel] / r["gen"],
+                   max_memory_allocated_serving=peak)
+        del r
+        torch.cuda.empty_cache()
+        return out
+
+    qwen_serving = serve_phase(cfg, "flash_sm90")
+    stablelm_serving = serve_phase(cfg_sl, "flash")
 
     # ---- 8. float32 consistency: flash prefill vs plain decode ----------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -504,9 +539,10 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     torch.cuda.empty_cache()
 
     # ---- 9. flash kernels at their paths' shapes: times, bounds ---------
-    def flash_row(name, shape, dt, n_launches, inner):
+    def flash_times(shape, dt, inner):
         """Times of the kernel that ``flash_attention`` routes ``shape``
-        causal in ``dt`` to, its plain version, SDPA and its bound."""
+        causal in ``dt`` to, its plain version and SDPA, and its bound at
+        the peak for ``dt``."""
         b, h, s, d = shape
         q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
                    .to(dt).transpose(1, 2) for _ in range(3))
@@ -514,47 +550,35 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         flops = 4 * b * h * d * s * (s + 1) / 2       # QK^T and PV, causal
         bound, by = bound_ms(nbytes, flops, str(dt).split(".")[1])
         return dict(
-            name=name, route="cuda",
-            source="src/repro_torch/kernels/csrc/" + _build.SOURCES[name],
-            replaces="src/repro/kernels/flash.py:74", launches=n_launches,
             max_abs_err=errs[(b, h, h, s, s, d, True, dt)],
             ms=event_ms(lambda: flash_attention(q, k, v), inner=inner),
             plain_ms=event_ms(lambda: flash_attention_ref(q, k, v), reps=5),
             bound_ms=bound, bound_by=by,
             library_ms=event_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=True), inner=inner),
-            shape=list(shape), dtype=str(dt).split(".")[1], causal=True)
+            shape=list(shape), dtype=str(dt).split(".")[1], causal=True,
+            flops=flops, bytes=nbytes)
 
-    sm90_row = flash_row("flash_sm90", (B, H, S, D), torch.bfloat16,
-                         lm_launches["flash_sm90"], inner=10)
-    sm90_row.update(launches_per_prefill=per_prefill,
-                    launches_per_decode_step=per_decode_step,
-                    max_memory_allocated_serving=peak)
-    simt_row = flash_row("flash", (4, H, S, D), torch.float32,
-                         f32_launches["flash"], inner=5)
-    simt_row["launches_path"] = "lm_consistency_f32"
+    def make_row(name, shape, serving):
+        return dict(name=name, route="cuda",
+                    source="src/repro_torch/kernels/csrc/"
+                    + _build.SOURCES[name],
+                    replaces="src/repro/kernels/flash.py:74",
+                    **flash_times(shape, torch.bfloat16, inner=10), **serving)
 
-    # the old kernel on the new one's serving-shape tensors, in turns:
-    # tensor cores, CUDA cores, CUDA cores, tensor cores
-    q, k, v = (torch.randn(B, S, H, D, generator=gen, device=dev)
-               .to(torch.bfloat16).transpose(1, 2) for _ in range(3))
-    want = flash_attention_ref(q, k, v)
-    tol = tols[torch.bfloat16]
-    got = flash_mod._launch("flash", q, k, v, True)
-    ok, simt_err = close(got, want, tol, tol)
-    emit(check="flash_simt_serving_shape", max_abs_err=simt_err, tol=tol,
-         limit_share=limit_share(got, want, tol, tol), ok=ok)
-    check(ok, f"flash (CUDA cores) at the serving shape: {simt_err}")
-    del want, got
-    sm90_ms = [event_ms(lambda: flash_attention(q, k, v), inner=10)]
-    simt_ms = [event_ms(lambda: flash_mod._launch("flash", q, k, v, True),
-                        inner=5) for _ in range(2)]
-    sm90_ms.append(event_ms(lambda: flash_attention(q, k, v), inner=10))
-    sm90_row["ms_turns_vs_flash"] = sm90_ms
-    simt_row.update(ms_at_serving_shape_bf16=statistics.median(simt_ms),
-                    ms_turns_at_serving_shape_bf16=simt_ms,
-                    max_abs_err_at_serving_shape_bf16=simt_err)
-    return [sm90_row, simt_row]
+    sm90_row = make_row("flash_sm90", (B, H, S, D), qwen_serving)
+    flash_row = make_row("flash", (B, H_sl, S, D_sl), stablelm_serving)
+    # flash's float32 path: 3xTF32, three TF32 products per product, so its
+    # bound is 3x the flops at the TF32 peak; the CUDA-core bound (the flops
+    # at the f32 FMA peak) is kept beside it
+    f32_path = flash_times((4, H, S, D), torch.float32, inner=5)
+    f32_path.update(
+        bound_ms=3 * f32_path["flops"] / PEAK_FLOPS["tf32"] * 1e3,
+        bound_by="ops_3xtf32",
+        cuda_core_bound_ms=f32_path["flops"] / PEAK_FLOPS["float32"] * 1e3,
+        launches=f32_launches["flash"], launches_path="lm_consistency_f32")
+    flash_row["f32_path"] = f32_path
+    return [sm90_row, flash_row]
 
 
 def main(argv=None) -> int:

@@ -9,7 +9,9 @@ alone:
   128, both products on the tensor cores (wgmma) with TMA-fed tiles; P is
   rounded to bf16 before the PV product;
 * ``flash`` (``csrc/flash_attn.cu``): float32 (every head dim) and bf16
-  with head dim 16 or 80, float32 FMAs on the CUDA cores.
+  with head dim 16 or 80, both products by ``mma.sync`` on the tensor
+  cores: bf16 as bf16 with P rounded to bf16, float32 as 3xTF32 (each
+  product split into three TF32 products, at float32's accuracy).
 
 Both replace the Pallas TPU kernel
 ``src/repro/kernels/flash.py::flash_attention`` (body ``_flash_kernel``)
@@ -51,27 +53,29 @@ def flash_route(dtype: torch.dtype, head_dim: int, byte_strides,
     bfloat16 with a head dim in :data:`SM90_HEAD_DIMS`, ``"flash"``
     otherwise.  The route depends on dtype and head dim alone.
 
-    For ``flash_sm90`` the tensors must meet TMA's contract, else this
-    raises ``ValueError`` (never another route): the head dim contiguous,
-    every base pointer and every outer byte stride a multiple of 16.
-    ``byte_strides`` holds, for each of q, k and v, the byte strides of its
-    four axes, None for an axis of size 1 (whose stride is never used);
-    ``pointers`` holds their data pointers."""
-    if dtype != torch.bfloat16 or head_dim not in SM90_HEAD_DIMS:
-        return "flash"
+    Both kernels copy with 16-byte units (TMA for ``flash_sm90``,
+    ``cp.async`` for ``flash``), so the tensors must meet that contract,
+    else this raises ``ValueError`` (never another route): the head dim
+    contiguous, every base pointer and every outer byte stride a multiple
+    of 16.  ``byte_strides`` holds, for each of q, k and v, the byte strides
+    of its four axes, None for an axis of size 1 (whose stride is never
+    used); ``pointers`` holds their data pointers."""
+    route = ("flash_sm90" if dtype == torch.bfloat16
+             and head_dim in SM90_HEAD_DIMS else "flash")
+    copy = "TMA" if route == "flash_sm90" else "cp.async"
     for name, st, ptr in zip("qkv", byte_strides, pointers):
-        if st[-1] != 2:
+        if st[-1] != dtype.itemsize:
             raise ValueError(f"flash_attention: {name}'s head dim is not "
                              f"contiguous (byte stride {st[-1]})")
         if ptr % 16:
             raise ValueError(f"flash_attention: {name}'s data pointer is "
-                             f"not 16-byte aligned, as TMA needs")
+                             f"not 16-byte aligned, as {copy} needs")
         bad = [s for s in st[:-1] if s is not None and s % 16]
         if bad:
             raise ValueError(f"flash_attention: {name}'s byte strides "
                              f"{tuple(st)} are not multiples of 16, as "
-                             f"TMA needs")
-    return "flash_sm90"
+                             f"{copy} needs")
+    return route
 
 
 def _byte_strides(t: torch.Tensor) -> tuple:
@@ -115,17 +119,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: the head dim must be contiguous")
     name = flash_route(q.dtype, D, [_byte_strides(t) for t in (q, k, v)],
                        [t.data_ptr() for t in (q, k, v)])
-    return _launch(name, q, k, v, causal)
-
-
-def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
-    """Launch kernel library ``name`` (``"flash"`` or ``"flash_sm90"``) on
-    CUDA tensors that :func:`flash_attention` has checked."""
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    if name == "flash" and B * H > 65535:
-        raise ValueError(f"flash_attention: B*H={B * H} exceeds the grid")
     out = torch.empty_like(q)
 
     def outer(t):

@@ -126,7 +126,7 @@ def test_wrapper_refuses_tensors_off_cpu_and_cuda():
         flash_attention(x, x, x)
 
 
-# ---- the two CUDA routes and flash_sm90's arithmetic ----------------------
+# ---- the two CUDA routes and the kernels' arithmetic ----------------------
 
 def _bshd(shape, dtype=torch.bfloat16, width=None):
     """A (B, S, H, D) buffer seen as (B, H, S, D), as gqa_attend hands it
@@ -174,45 +174,91 @@ def test_tma_contract_violations_raise(which):
         bad = torch.zeros(2, 4, 256, 128, dtype=torch.bfloat16)[..., ::2]
     with pytest.raises(ValueError, match="TMA|contiguous"):
         _route(good, bad, good)
-    # the same tensors in float32 go to the CUDA-core kernel unchecked
+    # their float32 copies (68 floats = 272 B apart, or contiguous and
+    # freshly allocated) meet flash's cp.async contract
     assert _route(good.float(), bad.float(), good.float()) == "flash"
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 80),
+                                     (torch.bfloat16, 16),
+                                     (torch.float32, 64),
+                                     (torch.float32, 80)])
+@pytest.mark.parametrize("which", ["stride", "pointer"])
+def test_cp_async_contract_violations_raise(dtype, D, which):
+    """flash's route copies 16-byte chunks with cp.async: a view whose
+    row stride or data pointer is off a 16-byte boundary raises, an aligned
+    one passes."""
+    good = _bshd((2, 256, 4, D), dtype)
+    assert _route(good, good, good) == "flash"
+    half = 8 // good.element_size()           # elements in 8 bytes
+    if which == "stride":          # head rows D + 8 B apart
+        bad = _bshd((2, 256, 4, D), dtype, width=D + half)
+    else:                          # 8 bytes past an aligned base
+        flat = torch.zeros(2 * 256 * 4 * D + half, dtype=dtype)
+        bad = flat[half:].view(2, 256, 4, D).transpose(1, 2)
+    with pytest.raises(ValueError, match="cp.async"):
+        _route(good, good, bad)
 
 
 _LOG2E = np.float32(1.4426950408889634)
 
 
-def _sm90_emulation(q, k, v, causal):
-    """flash_sm90's arithmetic in plain PyTorch, for the test only: key
-    tiles of 128 with the online rescale, scores as f32 sums of exact bf16
-    products, the row max taken on the raw scores and scale*log2(e) applied
-    with it (exp2(s c - m c)), P rounded to bf16 before the PV product, l
-    summed from the rounded P, output in bf16."""
+def _tf32(x):
+    """float32 rounded to tf32 as ``cvt.rna.tf32.f32`` does: to 10 mantissa
+    bits, ties away from zero.  On the int32 view the magnitude is the low
+    31 bits, so adding half of the dropped 13 bits' range and clearing them
+    rounds the magnitude whatever the sign."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _product_3xtf32(eq, a, b):
+    """einsum ``eq`` of float32 a and b as flash's 3xTF32 mma.sync does it:
+    x = hi + lo with hi = tf32(x), lo = tf32(x - hi); lo*hi + hi*lo + hi*hi,
+    lo*lo dropped."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)
+            + torch.einsum(eq, ah, bh))
+
+
+def _emulation(q, k, v, causal, tile, tf32x3=False):
+    """A flash kernel's arithmetic in plain PyTorch, for the tests only: key
+    tiles of ``tile`` with the online rescale, the row max taken on the raw
+    scores and scale*log2(e) applied with it (exp2(s c - m c)), output in
+    q's dtype.  bf16 (flash_sm90 with tile 128, flash with tile 64): scores
+    as f32 sums of exact bf16 products, P rounded to bf16 before the PV
+    product, l summed from the rounded P.  ``tf32x3`` (flash in float32,
+    tile 32): both products in 3xTF32, P kept in float32."""
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     qf, kf, vf = q.float(), k.float(), v.float()
     c = float(_LOG2E / np.sqrt(np.float32(D)))
+    product = _product_3xtf32 if tf32x3 else torch.einsum
     m = torch.full((B, H, Sq, 1), -1e30)
     l = torch.zeros(B, H, Sq, 1)
     acc = torch.zeros(B, H, Sq, D)
     qpos = torch.arange(Sq)[:, None]
-    for k0 in range(0, Sk, 128):
-        kpos = k0 + torch.arange(128)[None, :]
-        kt = torch.zeros(B, H, 128, D)
-        vt = torch.zeros(B, H, 128, D)
-        n = min(128, Sk - k0)           # TMA fills rows past Sk with zeros
+    for k0 in range(0, Sk, tile):
+        kpos = k0 + torch.arange(tile)[None, :]
+        kt = torch.zeros(B, H, tile, D)
+        vt = torch.zeros(B, H, tile, D)
+        n = min(tile, Sk - k0)          # rows past Sk are zero-filled
         kt[:, :, :n], vt[:, :, :n] = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
-        s = torch.einsum("bhqd,bhkd->bhqk", qf, kt)
+        s = product("bhqd,bhkd->bhqk", qf, kt)
         dead = kpos >= Sk
         if causal:
             dead = dead | (kpos > qpos)
         s = s.masked_fill(dead, -1e30)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp2((m - m_new) * c)
-        p = torch.exp2(s * c - m_new * c).to(torch.bfloat16).float()
+        p = torch.exp2(s * c - m_new * c)
+        if not tf32x3:
+            p = p.to(torch.bfloat16).float()
         l = l * corr + p.sum(-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vt)
+        acc = acc * corr + product("bhqk,bhkd->bhqd", p, vt)
         m = m_new
-    return (acc / l.clamp_min(1e-30)).to(torch.bfloat16)
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 def _bf16_qkv(seed, B, H, Sq, D, Sk=None):
@@ -220,26 +266,75 @@ def _bf16_qkv(seed, B, H, Sq, D, Sk=None):
     return [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
 
 
-# 8e-3 absolute and relative: chip_smoke.py's bf16 limit for the kernel
-@pytest.mark.parametrize("B,H,Sq,Sk,D,causal", [
-    (1, 2, 2048, 2048, 64, True), (1, 2, 1024, 1024, 128, True),
-    (1, 2, 128, 384, 64, False), (1, 2, 128, 384, 128, False),
-    (1, 2, 64, 64, 64, True)])
-def test_sm90_arithmetic_matches_plain_version(B, H, Sq, Sk, D, causal):
+# 8e-3 absolute and relative: chip_smoke.py's bf16 limit for the kernels.
+# Key tile 128 is flash_sm90's (head dims 64, 128), 64 is flash's (16, 80).
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,tile", [
+    (1, 2, 2048, 2048, 64, True, 128), (1, 2, 1024, 1024, 128, True, 128),
+    (1, 2, 128, 384, 64, False, 128), (1, 2, 128, 384, 128, False, 128),
+    (1, 2, 64, 64, 64, True, 128),
+    (1, 2, 2048, 2048, 80, True, 64), (1, 2, 256, 256, 16, True, 64),
+    (1, 2, 128, 384, 80, False, 64), (1, 2, 96, 96, 80, True, 64),
+    (1, 2, 64, 64, 16, False, 64)])
+def test_sm90_arithmetic_matches_plain_version(B, H, Sq, Sk, D, causal,
+                                               tile):
     q, k, v = _bf16_qkv(Sq + D, B, H, Sq, D, Sk=Sk)
-    got = _sm90_emulation(q, k, v, causal)
+    got = _emulation(q, k, v, causal, tile)
     want = flash_attention_ref(q, k, v, causal=causal)
     assert got.dtype == want.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
                                atol=8e-3, rtol=8e-3)
 
 
+@pytest.mark.parametrize("D,tile", [(64, 128), (16, 64), (80, 64)])
 @pytest.mark.parametrize("causal", [True, False])
-def test_sm90_arithmetic_matches_pallas_interpret(causal):
-    q, k, v = _bf16_qkv(11, 1, 2, 256, 64)
-    got = _sm90_emulation(q, k, v, causal)
+def test_sm90_arithmetic_matches_pallas_interpret(causal, D, tile):
+    q, k, v = _bf16_qkv(11, 1, 2, 256, D)
+    got = _emulation(q, k, v, causal, tile)
     want = np.asarray(jax_flash(
         *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)),
         causal=causal, interpret=True).astype(jnp.float32))
     np.testing.assert_allclose(got.float().numpy(), want, atol=8e-3,
                                rtol=8e-3)
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0 ** -11          # halfway between two tf32 values
+    x = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 1.0 + 3 * 2.0 ** -12,
+                      3.0], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 1.0 + 2.0 ** -10,
+            3.0]
+    assert _tf32(x).tolist() == want
+
+
+# 3xTF32 against the plain float32 version: each product keeps about 21
+# bits (the rounding of lo and the dropped lo*lo, 2^-22 of it), so outputs
+# of magnitude below 4 at these lengths differ by about 1e-6; 1e-5 leaves
+# a tenfold margin and is 200 times tighter than the kernel's 2e-3 limit.
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_3xtf32_arithmetic_matches_plain_version(D, causal):
+    q, k, v = _t(*_qkv(np.random.default_rng(D + causal), 1, 2, 256, D))
+    got = _emulation(q, k, v, causal, 32, tf32x3=True)
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_tf32_inputs_alone_miss_f32_level():
+    """Why 3xTF32: rounding q, k and v to tf32 alone (hi*hi, the plain TF32
+    product) moves the output by far more than the 1e-5 above."""
+    q, k, v = _t(*_qkv(np.random.default_rng(2), 1, 2, 256, 64))
+    want = flash_attention_ref(q, k, v).numpy()
+    one_term = flash_attention_ref(*(_tf32(t) for t in (q, k, v))).numpy()
+    assert np.abs(one_term - want).max() > 1e-4
+
+
+# 2e-3: the tolerance of tests/test_kernels.py against the Pallas kernel
+@pytest.mark.parametrize("D", [16, 64, 80, 128])
+def test_3xtf32_arithmetic_matches_pallas_interpret(D):
+    q, k, v = _qkv(np.random.default_rng(D), 1, 2, 256, D)
+    got = _emulation(*_t(q, k, v), True, 32, tf32x3=True)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-3, rtol=2e-3)

@@ -288,6 +288,35 @@ def test_prefill_and_teacher_forced_decode(arch):
     torch.testing.assert_close(tl[:, 0], full[:, -1], **F32)
 
 
+# stablelm-smoke widened to stablelm-3b's head dim of 80 (d_model 160, two
+# heads): the head dim of the bf16 path of the flash kernel
+HD80 = dict(d_model=160, n_heads=2, n_kv_heads=2, head_dim=80)
+
+
+def test_head_dim_80_prefill_and_teacher_forced_decode():
+    """Prefill 32 tokens into a 40-slot cache, then feed 8 known tokens:
+    last-token logits agree with the JAX package at every step."""
+    jcfg = dataclasses.replace(jreg.get_config("stablelm-3b", smoke=True),
+                               **HD80)
+    tcfg = dataclasses.replace(treg.get_config("stablelm-3b", smoke=True),
+                               **HD80)
+    assert jcfg.head_dim == tcfg.head_dim == 80 and tcfg.n_layers == 2
+    params, _ = jtf.init_model(jax.random.PRNGKey(0), jcfg)
+    tm = params_from_jax(jax.tree.map(np.asarray, params), tcfg, CPU)
+    tok = _tokens(jcfg, 2, 40, seed=4)
+    jl, jc = jtf.prefill_forward(params, jcfg, jnp.asarray(tok[:, :32]),
+                                 cache_len=40)
+    tl, tc = ttf.prefill_forward(tm, tcfg, torch.from_numpy(tok[:, :32]),
+                                 cache_len=40)
+    _close(tl, jl)
+    for t in range(8):
+        cur = tok[:, 32 + t:33 + t]
+        jl, jc = jtf.decode_step(params, jcfg, jc, jnp.asarray(cur),
+                                 jnp.int32(32 + t))
+        tl, tc = ttf.decode_step(tm, tcfg, tc, torch.from_numpy(cur), 32 + t)
+        _close(tl, jl)
+
+
 def test_steps_factories_match_direct_calls():
     _, _, tcfg, tm = _model("qwen1.5-0.5b")
     tok = torch.from_numpy(_tokens(tcfg, 2, 16))

@@ -58,6 +58,22 @@ def test_serve_tokens_numbers(arch):
     np.testing.assert_array_equal(again["tokens"], r["tokens"])
 
 
+def test_serve_tokens_at_head_dim_80():
+    """stablelm-smoke widened to stablelm-3b's head dim of 80 serves on the
+    CPU: finite logits, ids in range, no kernel launches."""
+    cfg = dataclasses.replace(get_config("stablelm-3b", smoke=True),
+                              d_model=160, n_heads=2, n_kv_heads=2,
+                              head_dim=80)
+    r = serve.serve_tokens(cfg, batch=2, prompt_len=32, gen=4,
+                           temperature=0.8, device="cpu")
+    assert r["tokens"].shape == (2, 36)
+    gen = r["tokens"][:, 32:]
+    assert ((gen >= 0) & (gen < cfg.vocab)).all()
+    assert torch.isfinite(r["logits"]).all()
+    assert not any(r["launches_prefill"].values())
+    assert not any(r["launches_decode"].values())
+
+
 def test_sample_clamps_and_stays_in_range():
     gen = torch.Generator().manual_seed(0)
     logits = torch.zeros(4, 512)
