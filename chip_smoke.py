@@ -13,9 +13,23 @@ Phases (any failure exits non-zero and prints no result line):
      pdist kernel -> build_plan -> make_operator for dist_halo and
      dist_bell -> op.solve, checked against scipy; the launch counts are
      reset just before this phase and read just after it;
+  4b. geoKM again from the same seed: the same partition, vertex for
+     vertex;
   5. sparse numbers: phase seconds, CG iterations, per-iteration and
      per-matvec times, pdist and spmv_bell at their main-path shapes
      beside their plain versions, a library call and their bounds;
+  5b. the other exchange schedules on the same system, partition and
+     right-hand side, each through ``make_operator`` and ``op.solve`` with
+     the counts reset just before and read just after: dist_halo_seq,
+     dist_allgather, dist_hier on two pods (``topo.pod_assignment(2)``)
+     and on the tree fanouts (2, 2, 2), dist_hier_bell on two pods (which
+     must launch spmv_bell; the others never do); each solution against
+     scipy and against dist_halo's, with its plan seconds, rounds per
+     level, matvec and CG iteration times and peak memory;
+  5c. block-Jacobi PCG on grid((96, 96)), where the dense (k, B, B)
+     inverses fit (at 1024^2 they would take 4.35 TB): dist_halo fused
+     and dist_hier on two pods fused and through cg_solve_global, against
+     plain dist_halo CG, with the host inversion seconds;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
@@ -143,7 +157,6 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
                                          spmv_block_ell_ref)
     from repro_torch.kernels.spmv_bell import (csr_to_block_ell,
                                                spmv_block_ell)
-    from repro_torch.sparse.distributed import make_dist_cg
     from repro_torch.sparse.generators import grid
     from repro_torch.sparse.graph import laplacian_csr
     from repro_torch.sparse.operator import make_operator
@@ -261,6 +274,17 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
         check(main_launches[kname] > 0,
               f"the main path never launched {kname}")
 
+    # ---- 4b. geoKM repeats itself: one partition per seed ----------------
+    t0 = time.perf_counter()
+    part2, _ = partition(g, topo, "geoKM", use_pallas=True)
+    same = int((part2 == part).sum())
+    emit(check="geokm_repeat", seconds=time.perf_counter() - t0,
+         vertices_equal=same, n=g.n, edge_cut=edge_cut(g, part),
+         ok=same == g.n)
+    check(same == g.n, f"geoKM from one seed differs in {g.n - same} "
+                       "vertices between two runs")
+    del part2
+
     # ---- 5. kernels at main-path shapes, times, bounds -------------------
     xs = torch.randn(plan.k, plan.B, generator=gen, device=dev)
     xs = xs * plan.row_mask
@@ -319,17 +343,147 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     del a_int
 
     xop = op_h.scatter(b)
-    n_it = 40
     for label, op in (("dist_halo", op_h), ("dist_bell", op_b)):
-        mv_ms = event_ms(lambda: op.matvec(xop))
-        # tol=0 never converges: exactly n_it iterations per solve
-        fused = make_dist_cg(op.plan, tol=0.0, max_iters=n_it,
-                             local_format=op.local_format)
-        it_ms = event_ms(lambda: fused(xop), reps=5) / n_it
+        mv_ms, it_ms = timed_cg(op, xop)
         emit(timing="cg", backend=label, matvec_ms=mv_ms, iteration_ms=it_ms,
-             iters=sols[label][1], iters_timed=n_it)
+             iters=sols[label][1], iters_timed=40)
     emit(timing="memory", path="sparse", max_memory_allocated=peak)
+
+    # dist_hier_bell builds its own block-ELL stack: free dist_bell's first
+    del op_b, op, plan, blocks, bcols, xs, x_flat, r, cidx, live, boff
+    torch.cuda.empty_cache()
+    hier_bell = other_backends(g, A, (indptr, indices, data), topo, part, b,
+                               op_h, sols["dist_halo"][0], emit)
+    rows[1]["launches_dist_bell"] = rows[1]["launches"]
+    rows[1]["launches_dist_hier_bell"] = hier_bell
+    rows[1]["launches"] += hier_bell
+    del op_h
+    torch.cuda.empty_cache()
+    block_jacobi_phase(args, emit)
     return rows
+
+
+def timed_cg(op, xop, n_it: int = 40) -> tuple[float, float]:
+    """Matvec ms and CG ms per iteration of ``op`` on ``xop``: CUDA
+    events, the iteration time the median of 5 solves of ``n_it``
+    iterations at tol 0 (which never converges)."""
+    fused = op.fused_solver(tol=0.0, max_iters=n_it)
+    return (event_ms(lambda: op.matvec(xop)),
+            event_ms(lambda: fused(xop), reps=5) / n_it)
+
+
+def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
+    """Phase 5b: the exchange schedules the main path does not take, on
+    its system.  Returns dist_hier_bell's spmv_bell launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.sparse.operator import make_operator
+
+    pods = topo.pod_assignment(2)
+    cases = (("dist_halo_seq", "dist_halo_seq", {}),
+             ("dist_allgather", "dist_allgather", {}),
+             ("dist_hier_pods2", "dist_hier", {"pods": pods}),
+             ("dist_hier_tree222", "dist_hier", {"fanouts": (2, 2, 2)}),
+             ("dist_hier_bell_pods2", "dist_hier_bell", {"pods": pods}))
+    xop = op_h.scatter(b)
+    hier_bell = 0
+    for label, backend, kw in cases:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        op = make_operator(*csr, backend, part=part, k=8, **kw)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = op.solve(b, tol=1e-6, max_iters=2000)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = _build.launches()
+        x = op.gather(res.x)
+        iters = int(res.iters.cpu())
+        rel = float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+        agree = float(np.abs(x - x_halo).max() / np.abs(x_halo).max())
+        mv_ms, it_ms = timed_cg(op, xop)
+        plan = op.plan
+        levels = ({"fanouts": list(plan.fanouts),
+                   "S_lvl": list(plan.S_lvl),
+                   "n_rounds_lvl": list(plan.n_rounds_lvl)}
+                  if backend.startswith("dist_hier") else
+                  {"S": plan.S, "n_rounds": plan.n_rounds})
+        emit(phase="backend", backend=label, plan_build_s=plan_s,
+             solve_s=solve_s, B=plan.B, **levels, iters=iters,
+             rel_residual=rel, agreement_with_dist_halo=agree,
+             matvec_ms=mv_ms, iteration_ms=it_ms, iters_timed=40,
+             launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        check(np.isfinite(x).all() and x.shape == (g.n,),
+              f"{label}: non-finite or misshapen solution")
+        check(rel < 1e-4, f"{label}: relative residual {rel} >= 1e-4")
+        check(agree < 1e-5, f"{label} and dist_halo disagree: {agree}")
+        check(0 < iters < 2000, f"{label}: {iters} iterations")
+        bell = backend.endswith("_bell")
+        check((launches["spmv_bell"] > 0) == bell,
+              f"{label} launched spmv_bell {launches['spmv_bell']} times")
+        if bell:
+            hier_bell = launches["spmv_bell"]
+        del op, plan, res
+        torch.cuda.empty_cache()
+    return hier_bell
+
+
+def block_jacobi_phase(args, emit) -> None:
+    """Phase 5c: block-Jacobi PCG where its dense inverses fit."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.core.api import partition
+    from repro_torch.core.topology import Topology, scale_to_load
+    from repro_torch.sparse.generators import grid
+    from repro_torch.sparse.graph import laplacian_csr
+    from repro_torch.sparse.operator import cg_solve_global, make_operator
+
+    side = 96
+    g = grid((side, side))
+    csr = laplacian_csr(g, shift=1e-2)
+    A = sp.csr_matrix((csr[2], csr[1], csr[0]), shape=(g.n, g.n))
+    topo = scale_to_load(Topology.topo1(8, 2 / 8, 8.0, 8.5), g.n)
+    part, _ = partition(g, topo, "geoKM", use_pallas=True)
+    b = np.random.default_rng(args.seed + 1).normal(
+        size=g.n).astype(np.float32)
+    tol = 1e-7
+    op = make_operator(*csr, "dist_halo", part=part, k=8)
+    res = op.solve(b, tol=tol, max_iters=2000)
+    x_plain = op.gather(res.x)
+    plain_iters = int(res.iters.cpu())
+    hier = make_operator(*csr, "dist_hier", part=part, k=8,
+                         pods=topo.pod_assignment(2))
+    for label, o, composable in (("dist_halo", op, False),
+                                 ("dist_hier_pods2", hier, False),
+                                 ("dist_hier_pods2", hier, True)):
+        t0 = time.perf_counter()
+        o.plan.block_jacobi_inv()
+        torch.cuda.synchronize()
+        inv_s = time.perf_counter() - t0
+        if composable:
+            x, iters, _ = cg_solve_global(o, b, tol=tol, max_iters=2000,
+                                          precondition="block_jacobi")
+        else:
+            r = o.solve(b, tol=tol, max_iters=2000,
+                        precondition="block_jacobi")
+            x, iters = o.gather(r.x), int(r.iters.cpu())
+        rel = float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+        agree = float(np.abs(x - x_plain).max() / np.abs(x_plain).max())
+        emit(phase="block_jacobi", grid=side, backend=label,
+             path="cg_solve_global" if composable else "fused", B=o.plan.B,
+             inverse_bytes=o.plan.k * o.plan.B ** 2 * 4,
+             host_inversion_s=inv_s, iters=iters, plain_cg_iters=plain_iters,
+             rel_residual=rel, agreement_with_plain=agree, tol=tol)
+        check(np.isfinite(x).all(), f"block-Jacobi {label}: non-finite")
+        check(rel < 1e-4, f"block-Jacobi {label}: residual {rel} >= 1e-4")
+        check(agree < 1e-5, f"block-Jacobi {label} and plain dist_halo "
+                            f"disagree: {agree}")
+        check(0 < iters < 2000, f"block-Jacobi {label}: {iters} iterations")
 
 
 def lm_path(args, dev, gen, emit) -> list[dict]:
@@ -603,6 +757,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    t_start = time.perf_counter()
+
     # ---- 1. banner ------------------------------------------------------
     name = torch.cuda.get_device_name(0)
     smi_line = smi()
@@ -624,6 +780,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rows += lm_path(args, dev, gen, emit)
 
+    emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

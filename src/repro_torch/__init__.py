@@ -7,8 +7,9 @@ for ``sm_90a``, each beside its plain PyTorch version).  It imports neither
 ``jax`` nor ``repro``.
 
 Entry points (``core.api.partition``, ``sparse.operator.make_operator``,
-``sparse.distributed.build_plan``, ``sparse.operator.cg_solve_global``) run
-on the card unless the caller passes ``device="cpu"``.
+``sparse.distributed.build_plan`` / ``build_plan_tree``,
+``sparse.operator.cg_solve_global``) run on the card unless the caller
+passes ``device="cpu"``.
 """
 from .device import resolve_device
 

@@ -1,2 +1,3 @@
-"""LDHT core for the port: topology, Algorithm 1, geoKM and the
-``partition`` entry point (flat path)."""
+"""LDHT core for the port: topology (with its tree and pod tables),
+Algorithm 1, geoKM, the partition metrics and the ``partition`` entry point
+(flat path)."""

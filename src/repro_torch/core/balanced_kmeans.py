@@ -12,8 +12,10 @@ the requested sizes with compact shapes.
 The loop runs on the device with a fixed trip count, as the reference's
 ``lax.fori_loop`` does: an (n, k) distance computation (the CUDA kernel of
 ``kernels/pdist.py`` under ``use_pallas=True``), argmin assignment,
-``index_add_`` loads and centroids, and a price update.  Seeding and the
-exact rebalance are host NumPy, copied from the reference.
+``index_add_`` loads (integer counts, exact in any order), centroids as
+masked reductions (one order of sums; :func:`centroid_sums`), and a price
+update.  Seeding and the exact rebalance are host NumPy, copied from the
+reference.
 """
 from __future__ import annotations
 
@@ -39,6 +41,17 @@ def _init_centers(coords: np.ndarray, tw: np.ndarray,
     np.add.at(sums, part, coords)
     counts = np.maximum(np.bincount(part, minlength=k), 1)
     return (sums / counts[:, None]).astype(np.float32)
+
+
+def centroid_sums(coords: torch.Tensor, part: torch.Tensor, k: int):
+    """Per-centre coordinate sums and member counts, (k, d) and (k,), as
+    masked reductions over the points.  ``index_add_`` adds atomically on
+    CUDA, in no fixed order, and the loop amplifies an ulp into another
+    partition; a reduction sums in one order for one shape on one card, so
+    geoKM gives one partition per seed there too."""
+    member = (part[:, None] == torch.arange(k, device=part.device)).to(
+        coords.dtype)                                            # (n, k)
+    return (member[:, :, None] * coords[:, None, :]).sum(0), member.sum(0)
 
 
 def _bkm_loop(coords: torch.Tensor, centers: torch.Tensor, tw: torch.Tensor,
@@ -81,11 +94,7 @@ def _bkm_loop(coords: torch.Tensor, centers: torch.Tensor, tw: torch.Tensor,
                 (load_frac + 1e-6) / (tw_frac + 1e-6))
             log_price = log_price - log_price.mean()
         part = assign(dist2, log_price)
-        sums = torch.zeros((k, coords.shape[1]), dtype=coords.dtype,
-                           device=dev)
-        sums.index_add_(0, part, coords)
-        counts = torch.zeros(k, dtype=coords.dtype, device=dev)
-        counts.index_add_(0, part, ones)
+        sums, counts = centroid_sums(coords, part, k)
         new_centers = sums / counts.clamp(min=1.0)[:, None]
         # keep empty centers where they were
         centers = torch.where(counts[:, None] > 0, new_centers, centers)

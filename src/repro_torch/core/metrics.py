@@ -7,12 +7,19 @@ to report partition quality.
                   (data words b must receive); max over blocks is the
                   paper's maxCommVolume
   * imbalance   — max_i tw_actual(b_i)/tw_target(b_i)
+
+Hierarchical splits: given an (h-1, k) ancestor table of the blocks
+(``topology.normalize_tree_of``), cut and comm volume split exactly into
+per-tree-level components — every cut edge / received word crosses a block
+pair with exactly one LCA level.  The two-level (pod) splits are the
+``h == 2`` instance.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..sparse.graph import Graph
+from .topology import level_matrix
 
 
 def edge_cut(g: Graph, part: np.ndarray) -> float:
@@ -83,3 +90,67 @@ def imbalance(part: np.ndarray, tw: np.ndarray) -> float:
     if not pos.any():
         return 1.0
     return float((sizes[pos] / tw[pos]).max())
+
+
+# -- hierarchical (tree-aware) splits --------------------------------------
+
+def tree_cut_split(g: Graph, part: np.ndarray,
+                   anc: np.ndarray) -> np.ndarray:
+    """Edge cut split by LCA level: (h,) array with
+    ``tree_cut_split(...).sum() == edge_cut`` exactly — every cut edge
+    connects two distinct blocks with exactly one tree-distance level
+    (``topology.level_matrix``).  ``anc`` is the (h-1, k) ancestor table
+    (a (k,) pod array is the two-level instance)."""
+    anc = np.atleast_2d(np.asarray(anc))
+    h = anc.shape[0] + 1
+    lev = level_matrix(anc)
+    src, dst, w = g.edge_list()
+    pa, pb = part[src], part[dst]
+    lev_uv = lev[pa, pb]                        # -1 for same-block pairs
+    # both directions counted in each sum, halved per level
+    return np.array([float(np.sum(w * (lev_uv == l))) / 2.0
+                     for l in range(h)])
+
+
+def tree_comm_volumes(g: Graph, part: np.ndarray, k: int,
+                      anc: np.ndarray) -> np.ndarray:
+    """Received-words per block split by the owner's LCA level: (h, k)
+    array with column sums over levels == :func:`comm_volumes` exactly —
+    each distinct (receiver, remote vertex) pair has one owning block,
+    hence one level.  Row ``l`` sums to the word count the tree schedule
+    moves over the level-``l`` links; ``row.max()`` is the per-level
+    bottleneck volume (the Langguth/Schlag/Schulz objective)."""
+    anc = np.atleast_2d(np.asarray(anc))
+    h = anc.shape[0] + 1
+    lev = level_matrix(anc)
+    src, dst, _ = g.edge_list()
+    pb, pv = part[src], part[dst]
+    ext = pb != pv
+    blocks, verts = _dedup_recv_pairs(pb[ext], dst[ext], g.n, k)
+    owners = part[verts]
+    lev_pair = lev[blocks, owners]
+    return np.stack([np.bincount(blocks[lev_pair == l], minlength=k)
+                     for l in range(h)])
+
+
+def pod_cut_split(g: Graph, part: np.ndarray,
+                  pod_of: np.ndarray) -> tuple[float, float]:
+    """Edge cut split by pod locality — the two-level instance of
+    :func:`tree_cut_split`: ``(intra, inter)`` with ``intra + inter ==
+    edge_cut`` exactly."""
+    intra, inter = tree_cut_split(g, part,
+                                  np.asarray(pod_of)[None, :])
+    return float(intra), float(inter)
+
+
+def pod_comm_volumes(g: Graph, part: np.ndarray, k: int,
+                     pod_of: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Received-words per block split by the owner's pod — the two-level
+    instance of :func:`tree_comm_volumes`: ``(intra, inter)`` (k,)
+    arrays with ``intra + inter == comm_volumes`` exactly.
+
+    ``inter.sum()`` is the total word count the hier schedule moves over
+    the slow links; ``inter.max()`` the bottleneck per-PU slow-link
+    volume."""
+    vols = tree_comm_volumes(g, part, k, np.asarray(pod_of)[None, :])
+    return vols[0], vols[1]

@@ -1,3 +1,3 @@
 """Sparse substrate for the port: CSR graphs and generators, the padded-COO
-and block-ELL operators, the chunked CG, and the distributed plan with its
-stacked single-GPU runtime."""
+and block-ELL operators, the chunked CG, and the flat and tree distributed
+plans with their stacked single-GPU runtime."""

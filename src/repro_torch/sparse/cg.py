@@ -1,6 +1,7 @@
 """Conjugate-gradient solver (Sec. VI-a: CG on systems derived from the
 graph's Laplacian) — the port of ``src/repro/sparse/cg.py`` (plain and
-preconditioned single-RHS modes).
+preconditioned single-RHS modes: Jacobi, block-Jacobi through a
+distributed Operator, or a callable M^-1).
 
 The reference runs one ``lax.while_loop`` whose stop test stays on the
 device.  In eager PyTorch a stop test per iteration would be a host sync
@@ -76,14 +77,19 @@ def _resolve_operator(matvec, dot, precondition):
         dot = dot or getattr(op, "dot", None)
         if precondition == "jacobi":
             precondition = jacobi_preconditioner(op.diag())
-    if precondition == "block_jacobi":
-        raise NotImplementedError(
-            "precondition='block_jacobi' is not ported yet; see ROADMAP.md "
-            "queue 1 item 5")
+        elif precondition == "block_jacobi":
+            bj = getattr(op, "block_jacobi_preconditioner", None)
+            if bj is None:
+                raise ValueError(
+                    "precondition='block_jacobi' needs an Operator with "
+                    "per-PU blocks (DistributedOperator); "
+                    f"{type(op).__name__} has none")
+            precondition = bj()
     if isinstance(precondition, str):
         raise ValueError(f"precondition={precondition!r} needs an Operator "
-                         "(jacobi: any backend with diag()); pass a "
-                         "callable M^-1 instead")
+                         "(jacobi: any backend with diag(); block_jacobi: "
+                         "distributed backends); pass a callable M^-1 "
+                         "instead")
     return matvec, dot or vdot, precondition
 
 
@@ -101,8 +107,9 @@ def cg_solve(matvec: Callable[[torch.Tensor], torch.Tensor],
              batched: bool = False) -> CGResult:
     """CG / preconditioned CG on ``b``'s device.
 
-    ``precondition`` is ``None`` (plain CG), a callable ``z = M^-1(r)`` or
-    ``'jacobi'`` (through the Operator's ``diag()``).  Convergence is always
+    ``precondition`` is ``None`` (plain CG), a callable ``z = M^-1(r)``,
+    ``'jacobi'`` (through the Operator's ``diag()``) or ``'block_jacobi'``
+    (through a distributed Operator's per-PU blocks).  Convergence is always
     tested on the unpreconditioned residual ||r||^2 <= tol^2 ||b||^2.
     The result does not depend on ``CHUNK``.
     """

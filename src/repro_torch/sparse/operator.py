@@ -1,12 +1,19 @@
 """The Operator protocol — one interface over the port's SpMV backends (the
-port of ``src/repro/sparse/operator.py``):
+port of ``src/repro/sparse/operator.py``, all eight of its backends):
 
-  * ``coo``       — single-device padded-COO ``index_add_`` (spmv.py);
-  * ``bell``      — the block-ELL CUDA kernel (kernels/spmv_bell.py);
-  * ``dist_halo`` — the stacked distributed runtime, overlapped halo
-                    exchange with a padded-COO interior matvec;
-  * ``dist_bell`` — the same with the interior matvec in the block-ELL
-                    kernel.
+  * ``coo``            — single-device padded-COO ``index_add_`` (spmv.py);
+  * ``bell``           — the block-ELL CUDA kernel (kernels/spmv_bell.py);
+  * ``dist_halo``      — the stacked distributed runtime: interior rows,
+                         halo rounds, boundary rows, padded-COO interior;
+  * ``dist_halo_seq``  — every halo round, then one matvec over all rows;
+  * ``dist_bell``      — ``dist_halo`` with the interior matvec in the
+                         block-ELL kernel;
+  * ``dist_allgather`` — the whole padded vector, then a matvec over
+                         global columns (the partitioner-oblivious
+                         baseline);
+  * ``dist_hier``      — the per-tree-level schedule over a tree plan
+                         (``pods=``, ``fanouts=`` or ``tree=``);
+  * ``dist_hier_bell`` — ``dist_hier`` with the block-ELL interior.
 
 An Operator has ``n``, ``matvec(x)`` and ``dot(u, v)`` in operator space
 ((n,) single-device, (k, B) padded block-major distributed), ``diag()``,
@@ -25,7 +32,9 @@ import torch
 from ..device import as_float, resolve_device, to_device
 from ..kernels.spmv_bell import csr_to_block_ell, spmv_block_ell
 from .cg import CGResult, cg_solve, vdot
-from .distributed import DistPlan, build_plan, make_dist_cg, make_dist_spmv
+from .distributed import (DistPlan, block_jacobi_preconditioner,
+                          build_plan, build_plan_tree, make_dist_cg,
+                          make_dist_spmv)
 from .spmv import csr_diagonal, csr_to_padded_coo, spmv_coo
 
 
@@ -144,11 +153,19 @@ class BlockEllOperator:
 
 @dataclasses.dataclass
 class DistributedOperator:
-    """Stacked distributed SpMV over a partition plan; operator space is
-    the (k, B) padded block-major layout, and ``dot`` is a plain sum
-    because ghost rows are zero in both vectors.  ``solve`` runs the whole
-    CG with the ``row_mask``-weighted dot of the reference's fused
-    program."""
+    """Stacked distributed SpMV over a partition plan.
+
+    ``comm`` picks the exchange schedule — ``'halo'`` (interior rows
+    first, the default), ``'halo_seq'`` (sequential), ``'allgather'``
+    (partitioner-oblivious baseline) or ``'hier'`` (per tree level; needs
+    a ``TreePlan``, see :meth:`from_csr`); ``local_format`` picks the
+    interior matvec — ``'coo'`` ``index_add_`` or ``'bell'`` (the
+    block-ELL kernel; ``comm='halo'`` or ``'hier'``).
+
+    Operator space is the (k, B) padded block-major layout, and ``dot`` is
+    a plain sum because ghost rows are zero in both vectors.  ``solve``
+    runs the whole CG with the ``row_mask``-weighted dot of the
+    reference's fused program."""
 
     plan: DistPlan
     comm: str = "halo"
@@ -162,8 +179,29 @@ class DistributedOperator:
 
     @classmethod
     def from_csr(cls, indptr, indices, data, part, k, comm: str = "halo",
-                 local_format: str = "coo", device=None):
-        plan = build_plan(indptr, indices, data, part, k, device=device)
+                 local_format: str = "coo", pods=None, fanouts=None,
+                 tree=None, device=None):
+        """``comm='hier'`` builds the tree plan — ``pods`` (pod count or
+        explicit (k,) pod-of-block array) for the two-level instance,
+        ``fanouts`` / ``tree`` ((k_1, ..., k_h) tuple / explicit (h-1, k)
+        ancestor table) for any depth; every other ``comm`` the flat
+        plan."""
+        if comm == "hier":
+            if pods is None and fanouts is None and tree is None:
+                raise ValueError(
+                    "comm='hier' needs pods= (pod count or (k,) "
+                    "pod-of-block array), fanouts= ((k_1, ..., k_h) "
+                    "tree shape) or tree= ((h-1, k) ancestor table)")
+            if pods is not None and tree is not None:
+                raise ValueError("pass either pods= or tree=, not both")
+            plan = build_plan_tree(indptr, indices, data, part,
+                                   pods if pods is not None else tree,
+                                   k, fanouts=fanouts, device=device)
+        else:
+            if pods is not None or fanouts is not None or tree is not None:
+                raise ValueError("pods=/fanouts=/tree= only apply to "
+                                 "comm='hier'")
+            plan = build_plan(indptr, indices, data, part, k, device=device)
         return cls(plan=plan, comm=comm, local_format=local_format)
 
     @property
@@ -179,6 +217,24 @@ class DistributedOperator:
     def diag(self):
         return self.plan.diag
 
+    def block_jacobi_preconditioner(self):
+        """z = M^-1 r with M = blockdiag(A_bb): one batched (B, B) product
+        per block from the plan's cached inverses."""
+        return block_jacobi_preconditioner(self.plan)
+
+    def fused_solver(self, tol: float = 1e-6, max_iters: int = 500,
+                     precondition: str | None = None):
+        """The cached whole-CG solver on *operator-space* operands
+        ((k, B) -> (x, residual, iters)) — what :meth:`solve` runs after
+        scattering."""
+        key = (tol, max_iters, precondition)
+        fused = self._fused.get(key)
+        if fused is None:
+            fused = self._fused[key] = make_dist_cg(
+                self.plan, tol=tol, max_iters=max_iters, comm=self.comm,
+                local_format=self.local_format, precondition=precondition)
+        return fused
+
     def scatter(self, x):
         return to_device(self.plan.scatter_vec(as_float(x)), self.device)
 
@@ -189,12 +245,10 @@ class DistributedOperator:
               precondition: str | None = None) -> CGResult:
         """Whole CG on a (n,) global right-hand side (host array);
         returns the result in operator space."""
-        key = (tol, max_iters, precondition)
-        fused = self._fused.get(key)
-        if fused is None:
-            fused = self._fused[key] = make_dist_cg(
-                self.plan, tol=tol, max_iters=max_iters, comm=self.comm,
-                local_format=self.local_format, precondition=precondition)
+        if np.ndim(b) != 1:
+            raise NotImplementedError("batched RHS is not ported yet; see "
+                                      "ROADMAP.md queue 1 item 7")
+        fused = self.fused_solver(tol, max_iters, precondition)
         x, res, it = fused(self.scatter(b))
         return CGResult(x=x, iters=it, residual=res)
 
@@ -203,19 +257,44 @@ class DistributedOperator:
 # Factory + harness entry point
 # --------------------------------------------------------------------------
 
-BACKENDS = ("coo", "bell", "dist_halo", "dist_bell")
-_REFERENCE_BACKENDS = ("dist_halo_seq", "dist_allgather", "dist_hier",
-                       "dist_hier_bell")
-_DIST_MODES = {"dist_halo": ("halo", "coo"), "dist_bell": ("halo", "bell")}
+BACKENDS = ("coo", "bell", "dist_halo", "dist_halo_seq", "dist_bell",
+            "dist_allgather", "dist_hier", "dist_hier_bell")
+
+_DIST_MODES = {
+    "dist_halo": ("halo", "coo"),
+    "dist_halo_seq": ("halo_seq", "coo"),
+    "dist_bell": ("halo", "bell"),
+    "dist_allgather": ("allgather", "coo"),
+    "dist_hier": ("hier", "coo"),
+    "dist_hier_bell": ("hier", "bell"),
+}
+
+_HIER_BACKENDS = ("dist_hier", "dist_hier_bell")
 
 
 def make_operator(indptr, indices, data, backend: str = "coo", *,
                   part=None, k: int | None = None, device=None,
                   **kw) -> Operator:
-    """One factory for the ported backends (see BACKENDS), on ``device``
+    """One factory for every backend (see BACKENDS), on ``device``
     (default the card).  The distributed backends need ``part=`` and
-    ``k=``; the reference's mesh becomes the one device."""
+    ``k=``; the reference's mesh becomes the one device.  ``dist_hier`` /
+    ``dist_hier_bell`` also need ``pods=``, ``fanouts=`` or ``tree=``.
+
+    ``part`` may also be a hierarchical partition (duck-typed on
+    ``.part`` / ``.pod_of``, as the reference's ``core.api.HierPartition``
+    is): the block partition, ``k`` and, for the hier backends, its
+    ancestor table (``.anc``, else ``.pod_of``) are unpacked from it."""
     device = resolve_device(device)
+    if part is not None and hasattr(part, "part") and hasattr(part,
+                                                              "pod_of"):
+        hp = part
+        part = np.asarray(hp.part)
+        if k is None:
+            k = hp.k
+        if backend in _HIER_BACKENDS and "pods" not in kw:
+            kw.setdefault("tree", np.asarray(hp.anc)
+                          if getattr(hp, "anc", None) is not None
+                          else np.asarray(hp.pod_of))
     if backend == "coo":
         return CooOperator.from_csr(indptr, indices, data, device=device,
                                     **kw)
@@ -230,9 +309,6 @@ def make_operator(indptr, indices, data, backend: str = "coo", *,
                                             comm=comm,
                                             local_format=local_format,
                                             device=device, **kw)
-    if backend in _REFERENCE_BACKENDS:
-        raise NotImplementedError(f"backend {backend!r} is not ported yet; "
-                                  "see ROADMAP.md queue 1 item 5")
     raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
 
 

@@ -161,16 +161,25 @@ def test_float32_tiny_scale_converges():
 
 
 def test_unported_modes_name_their_roadmap_item(system):
+    """What stays unported: batched multi-RHS CG and a batched RHS on any
+    backend (queue 1 item 7).  Every reference backend and preconditioner
+    is ported, so only unknown names and missing arguments raise
+    otherwise."""
     (indptr, indices, data), A, b = system
+    bb = np.stack([b, 2 * b], axis=1)
     op = make_operator(indptr, indices, data, "coo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cg_solve(op, op.scatter(b), precondition="block_jacobi")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         cg_solve(op, op.scatter(b), batched=True)
-    for backend in ("dist_halo_seq", "dist_allgather", "dist_hier",
-                    "dist_hier_bell"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_operator(indptr, indices, data, backend, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        cg_solve_global(op, bb, device="cpu")
+    part = np.arange(op.n) % 4
+    for backend, kw in (("dist_halo", {}), ("dist_hier", {"pods": 2})):
+        dop = make_operator(indptr, indices, data, backend, part=part, k=4,
+                            device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            dop.solve(bb)
+        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+            cg_solve(dop, dop.scatter(bb), batched=True)
     with pytest.raises(ValueError):
         make_operator(indptr, indices, data, "nope", device="cpu")
     with pytest.raises(ValueError):
