@@ -7,7 +7,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device banner (name, nvidia-smi power limit);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, sm_90a,
      one nvcc per source, all started together);
-  3. hold pdist and spmv_bell against their plain PyTorch versions;
+  3. hold pdist, spmv_bell and spmv_bell_multi (nb = 1, 3, 16 and 33, f32
+     and f64) against their plain PyTorch versions;
   4. sparse path at full size, through the entry points: grid((side,
      side)) Laplacian -> Algorithm 1 on topo1(8) -> geoKM partition with the
      pdist kernel -> build_plan -> make_operator for dist_halo and
@@ -30,6 +31,16 @@ Phases (any failure exits non-zero and prints no result line):
      inverses fit (at 1024^2 they would take 4.35 TB): dist_halo fused
      and dist_hier on two pods fused and through cg_solve_global, against
      plain dist_halo CG, with the host inversion seconds;
+  5d. solver service (``repro_torch.launch.serve.SolverService``) on phase
+     4's system, topology and partition, buckets (1, 2, 4, 8, 16): a
+     dist_halo service over two matrices (shift 1e-2 and 2e-2) serving
+     ``SOLVER_REQUESTS`` batched requests of widths 1-16; a bell service
+     (the multi-column kernel, one launch per matvec) serving widths 16
+     and 3, each column against its own single-column solve; a dist_hier
+     service on two pods taking a value delta (an O(delta) plan patch)
+     and a cross-partition insertion (a drift trip, a rebuild and an
+     exact migration of the solver state); one JSON line per request and
+     per update, and spmv_bell_multi's times at nb = 1, 4 and 16;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
@@ -81,6 +92,7 @@ PEAK_FLOPS = {                   # H100 SXM data sheet, dense
     "bfloat16": 989e12,          # bf16 tensor cores
     "tf32": 495e12,              # TF32 tensor cores
 }
+SOLVER_REQUESTS = 8              # requests of phase 5d's dist_halo service
 
 
 class SmokeFailure(RuntimeError):
@@ -154,6 +166,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.kernels import _build
     from repro_torch.kernels.pdist import pairwise_sqdist
     from repro_torch.kernels.ref import (pairwise_sqdist_ref,
+                                         spmv_block_ell_multi_ref,
                                          spmv_block_ell_ref)
     from repro_torch.kernels.spmv_bell import (csr_to_block_ell,
                                                spmv_block_ell)
@@ -199,6 +212,43 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
              max_abs_err_scipy=err_sp, tol=1e-4, ok=ok and ok_sp)
         check(ok and ok_sp, f"spmv_bell bm={bm} bk={bk} disagrees: "
                             f"{err} (plain) / {err_sp} (scipy)")
+        # the batched form: nb = 33 takes the column-chunk loop
+        for dt in (torch.float32, torch.float64):
+            for nb in (1, 3, 16, 33):
+                xm = np.random.default_rng(args.seed + nb).normal(
+                    size=(g256.n, nb))
+                bd, xd = bt.to(dt), torch.from_numpy(xm).to(dev).to(dt)
+                got = spmv_block_ell(bd, ct, xd)
+                ok, err = close(got, spmv_block_ell_multi_ref(bd, ct, xd),
+                                1e-4, 1e-4)
+                ok_sp, err_sp = close(got.cpu(), torch.from_numpy(
+                    A256 @ xm.astype(np.float32 if dt == torch.float32
+                                     else np.float64)), 1e-4, 1e-4)
+                emit(check="spmv_bell_multi", grid=256, bm=bm, bk=bk, nb=nb,
+                     dtype=str(dt), max_abs_err=err,
+                     max_abs_err_scipy=err_sp, tol=1e-4, ok=ok and ok_sp)
+                check(ok and ok_sp, f"spmv_bell_multi bm={bm} bk={bk} "
+                      f"nb={nb} {dt} disagrees: {err} (plain) / {err_sp} "
+                      f"(scipy)")
+                errs["spmv_bell_multi"] = max(errs.get("spmv_bell_multi",
+                                                       0.0), err)
+            # an Inf and a NaN in X spread as in the dense product (nb =
+            # 33 takes the flagged chunked kernel, nb = 1 the single one)
+            xd[5, 1], xd[700, 4] = float("inf"), float("nan")
+            for xb in (xd, xd[:, 1:2].contiguous()):
+                got = spmv_block_ell(bd, ct, xb)
+                want = spmv_block_ell_multi_ref(bd, ct, xb)
+                fin = torch.isfinite(want)
+                same = (torch.equal(torch.isnan(got), torch.isnan(want))
+                        and torch.equal(torch.isinf(got), torch.isinf(want)))
+                ok, err = close(got[fin], want[fin], 1e-4, 1e-4)
+                emit(check="spmv_bell_multi_non_finite", grid=256, bm=bm,
+                     bk=bk, nb=xb.shape[1], dtype=str(dt),
+                     non_finite_rows=int((~fin).any(dim=1).sum()),
+                     same_pattern=same, max_abs_err=err, ok=ok and same)
+                check(ok and same, f"spmv_bell_multi bm={bm} bk={bk} "
+                      f"nb={xb.shape[1]} {dt}: an Inf/NaN in X spreads "
+                      f"unlike the dense product")
     torch.cuda.synchronize()
 
     # ---- 4. main path ---------------------------------------------------
@@ -360,6 +410,10 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     del op_h
     torch.cuda.empty_cache()
     block_jacobi_phase(args, emit)
+    torch.cuda.empty_cache()
+    rows.append(service_phase(args, g, A, (indptr, indices, data), topo,
+                              part, b, sols["dist_halo"],
+                              errs["spmv_bell_multi"], emit))
     return rows
 
 
@@ -484,6 +538,243 @@ def block_jacobi_phase(args, emit) -> None:
         check(agree < 1e-5, f"block-Jacobi {label} and plain dist_halo "
                             f"disagree: {agree}")
         check(0 < iters < 2000, f"block-Jacobi {label}: {iters} iterations")
+
+
+def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
+                  emit) -> dict:
+    """Phase 5d: solver serving on phase 4's system.  Returns the
+    spmv_bell_multi row of the kernels line."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.core.replan_policy import DriftPolicy
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import spmv_block_ell_multi_ref
+    from repro_torch.kernels.spmv_bell import spmv_block_ell
+    from repro_torch.launch.serve import SolverService
+    from repro_torch.sparse.cg import CHUNK
+    from repro_torch.sparse.graph import laplacian_csr
+    from repro_torch.sparse.operator import cg_solve_global, make_operator
+    from repro_torch.sparse.replan import EdgeDelta, apply_delta_csr
+
+    n, tol, buckets = g.n, 1e-6, (1, 2, 4, 8, 16)
+    kw = dict(buckets=buckets, tol=tol, max_iters=2000)
+
+    class Recorded(SolverService):
+        """Keeps each batched CG's own result (the padding columns'
+        iterations included) and its CUDA-event time in ``last``."""
+
+        def _run(self, op, bcols):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = super()._run(op, bcols)
+            end.record()
+            end.synchronize()
+            self.last = dict(cg_ms=start.elapsed_time(end),
+                             iters=res.iters.cpu().numpy())
+            return res
+
+    def serve(svc, label, mat, bb, A_mat):
+        """One request with the counts reset just before and read just
+        after; its JSON line; the real columns' residuals against A."""
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        resp = svc.solve(*mat, bb)
+        request_s = time.perf_counter() - t0
+        launches = _build.launches()
+        nb, last = bb.shape[1], svc.last
+        x = resp.x
+        rel = (np.linalg.norm(A_mat @ x - bb, axis=0)
+               / np.linalg.norm(bb, axis=0))
+        it = np.asarray(resp.iters)
+        emit(phase="solver_service", backend=label, width=nb,
+             bucket=resp.bucket, cache_hit=resp.cache_hit,
+             iters_max=int(it.max()), iters_min=int(it.min()),
+             padding_iters=last["iters"][nb:].tolist(),
+             cg_ms=last["cg_ms"], request_s=request_s,
+             ms_per_batched_iteration=last["cg_ms"] / max(
+                 int(last["iters"].max()), 1),
+             rel_residual_max=float(rel.max()), launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        check(np.isfinite(x).all() and x.shape == (n, nb),
+              f"{label} service: non-finite or misshapen solution")
+        check(rel.max() < 1e-4, f"{label} service: residual {rel.max()}")
+        check((last["iters"][nb:] == 0).all(),
+              f"{label} service: padding columns iterated "
+              f"{last['iters'][nb:]}")
+        return resp, launches
+
+    # ---- dist_halo service: two matrices, batched traffic ----------------
+    A2 = laplacian_csr(g, shift=2e-2)
+    pool = [(csr, A), (A2, sp.csr_matrix((A2[2], A2[1], A2[0]),
+                                         shape=A.shape))]
+    svc = Recorded(backend="dist_halo", capacity=4, part=part, k=8, **kw)
+    rng = np.random.default_rng(args.seed)
+    padded = 0
+    for r in range(SOLVER_REQUESTS):
+        mat, A_mat = pool[r % 2]
+        nb = int(rng.integers(1, 17))
+        bb = rng.normal(size=(n, nb)).astype(np.float32)
+        if r == 0:
+            bb[:, 0] = b
+        resp, launches = serve(svc, "dist_halo", mat, bb, A_mat)
+        padded += resp.bucket - nb
+        check(launches["spmv_bell"] == 0
+              and launches["spmv_bell_multi"] == 0,
+              f"the dist_halo service launched {launches}")
+        if r == 0:
+            x0, it0 = halo_sol
+            agree = float(np.abs(resp.x[:, 0] - x0).max()
+                          / np.abs(x0).max())
+            emit(check="service_vs_phase4", agreement=agree,
+                 iters=int(resp.iters[0]), iters_phase4=it0)
+            check(agree < 1e-5, f"served column 0 and phase 4's dist_halo "
+                                f"solution differ by {agree}")
+            check(abs(int(resp.iters[0]) - it0) <= 2,
+                  f"served column 0 took {int(resp.iters[0])} iterations, "
+                  f"phase 4 {it0}")
+    s = svc.stats
+    emit(phase="solver_service_stats", backend="dist_halo",
+         **dataclasses.asdict(s), padding_waste=s.padding_waste)
+    check(s.operator_misses == 2 and s.operator_hits == 6
+          and s.padded_cols == padded, f"dist_halo service counters {s}")
+    del svc, pool, A2
+    torch.cuda.empty_cache()
+
+    # ---- bell service: the multi-column kernel ---------------------------
+    svc = Recorded(backend="bell", capacity=2, **kw)
+    multi_launches, served = 0, []
+    for nb in (16, 3):
+        bb = rng.normal(size=(n, nb)).astype(np.float32)
+        resp, launches = serve(svc, "bell", csr, bb, A)
+        chunks = -(-int(svc.last["iters"].max()) // CHUNK)
+        check(launches["spmv_bell_multi"] == 1 + CHUNK * chunks
+              and launches["spmv_bell"] == 0,
+              f"the bell service launched {launches}, want "
+              f"spmv_bell_multi once per matvec ({1 + CHUNK * chunks})")
+        multi_launches += launches["spmv_bell_multi"]
+        served.append((bb, resp))
+    check(svc.stats.operator_misses == 1 and svc.stats.operator_hits == 1,
+          f"bell service counters {svc.stats}")
+    _, op, _ = svc.operator_for(*csr)
+    for bb, resp in served:
+        nb = bb.shape[1]
+        _build.reset_launches()
+        worst, worst_it = 0.0, 0
+        for j in range(nb):
+            xs, its, _ = cg_solve_global(op, bb[:, j], tol=tol,
+                                         max_iters=2000)
+            worst = max(worst, float(np.abs(resp.x[:, j] - xs).max()
+                                     / np.abs(xs).max()))
+            worst_it = max(worst_it, abs(int(resp.iters[j]) - its))
+        single = _build.launches()
+        emit(check="bell_service_vs_single_columns", width=nb,
+             agreement=worst, iters_diff=worst_it, launches=single)
+        check(worst < 1e-5, f"bell batched and single-column solves "
+                            f"differ by {worst}")
+        check(worst_it <= 2, f"bell batched and single-column iteration "
+                             f"counts differ by {worst_it}")
+        check(single["spmv_bell"] > 0 and single["spmv_bell_multi"] == 0,
+              f"the single-column solves launched {single}")
+
+    # spmv_bell_multi at the service's widths on the 1024^2 blocks
+    blocks, bcols = op.blocks, op.cols
+    a_csr = torch.sparse_csr_tensor(
+        torch.from_numpy(csr[0].astype(np.int64)),
+        torch.from_numpy(csr[1].astype(np.int64)),
+        torch.from_numpy(csr[2]), size=(n, n),
+        check_invariants=False).to(blocks.device)
+    by_nb = []
+    for nb in (1, 4, 16):
+        xm = torch.randn(n, nb, device=blocks.device)
+        x1 = xm[:, 0].contiguous()
+        err = float((spmv_block_ell(blocks, bcols, xm)
+                     - spmv_block_ell_multi_ref(blocks, bcols, xm)).abs()
+                    .max())
+        nbytes = (blocks.numel() * blocks.element_size()
+                  + bcols.numel() * 4 + 2 * xm.numel() * 4)
+        bnd, by = bound_ms(nbytes, 2 * blocks.numel() * nb)
+        by_nb.append(dict(
+            nb=nb, max_abs_err=err,
+            ms=event_ms(lambda: spmv_block_ell(blocks, bcols, xm)),
+            bound_ms=bnd, bound_by=by,
+            plain_ms=event_ms(lambda: spmv_block_ell_multi_ref(
+                blocks, bcols, xm), reps=5),
+            library_ms=event_ms(lambda: a_csr @ xm),
+            single_column_ms_times_nb=nb * event_ms(
+                lambda: spmv_block_ell(blocks, bcols, x1))))
+        check(err < 1e-4, f"spmv_bell_multi nb={nb} at 1024^2 disagrees "
+                          f"with its plain version: {err}")
+    top = by_nb[-1]
+    row = dict(name="spmv_bell_multi", route="cuda",
+               source="src/repro_torch/kernels/csrc/spmv_bell.cu",
+               replaces="src/repro/kernels/spmv_bell.py:169",
+               launches=multi_launches,
+               max_abs_err=max(multi_err, *(r["max_abs_err"]
+                                            for r in by_nb)),
+               ms=top["ms"], plain_ms=top["plain_ms"],
+               bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+               library_ms=top["library_ms"], nb=16,
+               shape=list(blocks.shape), by_nb=by_nb)
+    del svc, op, served, blocks, bcols, a_csr, xm, x1
+    torch.cuda.empty_cache()
+
+    # ---- dist_hier service: a patch, then a drift trip -------------------
+    svc = SolverService(backend="dist_hier", capacity=4, part=part, k=8,
+                        pods=topo.pod_assignment(2),
+                        drift=DriftPolicy(max_objective_ratio=1.2),
+                        repartition=lambda gs: part, **kw)
+    r0 = svc.solve(*csr, b)
+    dv = EdgeDelta(n, set_rows=[0, 1], set_cols=[1, 0],
+                   set_vals=[-0.5, -0.5])
+    t0 = time.perf_counter()
+    r1 = svc.update_matrix(r0.fingerprint, dv)
+    patch_s = time.perf_counter() - t0
+    check(r1.patched and not r1.repartitioned and r1.drift is not None
+          and not r1.drift.repartition, f"value delta: {r1}")
+    ip2, ix2, d2 = apply_delta_csr(*csr, dv)
+    hit = svc.solve(ip2, ix2, d2, b)
+    fresh = make_operator(ip2, ix2, d2, "dist_hier", part=part, k=8,
+                          pods=topo.pod_assignment(2))
+    xf = fresh.gather(fresh.solve(b, tol=tol, max_iters=2000).x)
+    agree = float(np.abs(hit.x - xf).max() / np.abs(xf).max())
+    check(hit.cache_hit, "the patched matrix missed the operator cache")
+    check(agree < 1e-5, f"patched and fresh dist_hier solves differ by "
+                        f"{agree}")
+    del fresh
+    # the reference's 30 top-to-bottom insertions, each weighted so that
+    # together they add the whole baseline objective at this size (at
+    # weight 1 they would move a 1024^2 cut by under 1%)
+    base = r1.drift.objective / r1.drift.objective_ratio
+    u = np.arange(0, 30, dtype=np.int64)
+    v = n - 1 - u
+    ds = EdgeDelta(n, set_rows=np.concatenate([u, v]),
+                   set_cols=np.concatenate([v, u]),
+                   set_vals=np.full(60, -base / 30))
+    xs = svc.operator_for(ip2, ix2, d2, r1.fingerprint)[1].scatter(b)
+    t0 = time.perf_counter()
+    r2 = svc.update_matrix(r1.fingerprint, ds, state=(xs,))
+    rebuild_s = time.perf_counter() - t0
+    ip3, ix3, d3 = apply_delta_csr(ip2, ix2, d2, ds)
+    migrated = svc.operator_for(ip3, ix3, d3, r2.fingerprint)[1].gather(
+        r2.state[0])
+    s = svc.stats
+    emit(phase="solver_service_update", backend="dist_hier_pods2",
+         patch_s=patch_s, rebuild_s=rebuild_s, patched_agreement=agree,
+         drift_reason=r2.drift.reason,
+         objective_ratio=r2.drift.objective_ratio,
+         state_exact=bool(np.array_equal(migrated, b)),
+         counters=[s.plan_patches, s.plan_rebuilds, s.drift_trips])
+    check(r2.drift.repartition and "objective" in r2.drift.reason
+          and r2.repartitioned and not r2.patched, f"insertion: {r2}")
+    check(np.array_equal(migrated, b), "the migrated state moved")
+    check((s.plan_patches, s.plan_rebuilds, s.drift_trips) == (1, 1, 1),
+          f"dist_hier service counters {s}")
+    del svc, r0, r1, r2, hit
+    torch.cuda.empty_cache()
+    return row
 
 
 def lm_path(args, dev, gen, emit) -> list[dict]:

@@ -13,13 +13,42 @@ Hierarchical splits: given an (h-1, k) ancestor table of the blocks
 per-tree-level components — every cut edge / received word crosses a block
 pair with exactly one LCA level.  The two-level (pod) splits are the
 ``h == 2`` instance.
+
+Cost-model metrics (what ``costmodel`` and ``replan_policy`` price a
+partition with): the weighted tree objective ``sum_level lam[level] *
+cut[level]`` and the per-PU bottleneck (makespan) split, with per-level
+weights from the shared default link costs (``resolve_lams``).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..sparse.graph import Graph
-from .topology import level_matrix
+from .topology import LinkCosts, level_matrix
+
+
+def _default_link_costs() -> LinkCosts:
+    """THE default cost model for every metric that takes an optional
+    ``lam``/``lams``: one resolution point, so the objective, the FM
+    gains, and ``summarize_hier``/``summarize_tree`` can never disagree
+    about what an unspecified lambda means.  Topology-calibrated models
+    come in through the ``lam``/``lams`` arguments
+    (``Topology.link_costs()``)."""
+    return LinkCosts()
+
+
+def resolve_lams(lams, h: int):
+    """(h,) per-level objective weights; defaults extend the one default
+    cost model geometrically to depth h (``link_costs`` ladder)."""
+    if lams is None:
+        base = _default_link_costs()
+        ratio = base.lam
+        return tuple(base.lams[l] if l < base.levels else
+                     float(ratio ** l) for l in range(h))
+    lams = tuple(float(x) for x in np.atleast_1d(np.asarray(lams)))
+    if len(lams) != h:
+        raise ValueError(f"need {h} per-level weights, got {len(lams)}")
+    return lams
 
 
 def edge_cut(g: Graph, part: np.ndarray) -> float:
@@ -131,6 +160,86 @@ def tree_comm_volumes(g: Graph, part: np.ndarray, k: int,
     lev_pair = lev[blocks, owners]
     return np.stack([np.bincount(blocks[lev_pair == l], minlength=k)
                      for l in range(h)])
+
+
+def tree_objective(g: Graph, part: np.ndarray, anc: np.ndarray,
+                   lams=None) -> float:
+    """The weighted tree cut ``sum_level lam[level] * cut[level]`` — what
+    the tree-aware FM gains (``refinement.fm_pair_refine(anc=...)``)
+    minimize.  ``lams`` defaults to the shared cost model
+    (:func:`_default_link_costs`) extended to the table's depth; at
+    ``h == 2`` this is bit-identical to :func:`two_level_objective`."""
+    anc = np.atleast_2d(np.asarray(anc))
+    lams = resolve_lams(lams, anc.shape[0] + 1)
+    cuts = tree_cut_split(g, part, anc)
+    obj = 0.0
+    for lam_l, cut_l in zip(lams, cuts):
+        obj += lam_l * cut_l
+    return float(obj)
+
+
+
+def per_pu_model_costs(g: Graph, part: np.ndarray, anc: np.ndarray,
+                       lams=None, speeds: np.ndarray | None = None,
+                       c_comp: float = 1.0,
+                       vw: np.ndarray | None = None) -> dict:
+    """Per-PU modeled cost split of the bottleneck (makespan) objective:
+
+      compute[i] = c_comp * w(b_i) / speed_i        (Algorithm-1 speeds)
+      comm[i]    = sum_l lams[l] * vols[l, i]       (deduplicated receive
+                                                     volume per tree level)
+
+    ``anc`` is the (h-1, k) ancestor table (a (0, k) table is the flat
+    single-level machine; a (k,) pod array is the two-level instance);
+    ``k`` is taken from its column count.  ``speeds`` defaults to a
+    homogeneous machine; ``c_comp`` converts one weight unit of modeled
+    compute into the cost of one innermost-level halo word (``lams[0]``
+    units), the knob a measured machine model will calibrate.  ``vw``
+    supplies per-vertex weights (coarse-level supernodes).
+
+    Returns ``{"compute": (k,), "comm": (k,), "comm_by_level": (h, k),
+    "total": (k,)}`` — ``total.max()`` is :func:`bottleneck_objective`,
+    ``total.argmax()`` the critical PU.
+    """
+    anc = np.atleast_2d(np.asarray(anc))
+    h, k = anc.shape[0] + 1, anc.shape[1]
+    lams = np.asarray(resolve_lams(lams, h), dtype=np.float64)
+    if vw is None:
+        sizes = block_sizes_of(part, k).astype(np.float64)
+    else:
+        sizes = np.bincount(part, weights=np.asarray(vw, np.float64),
+                            minlength=k)
+    speeds = (np.ones(k) if speeds is None
+              else np.asarray(speeds, dtype=np.float64))
+    vols = tree_comm_volumes(g, part, k, anc)
+    compute = float(c_comp) * sizes / speeds
+    comm = lams @ vols
+    return {"compute": compute, "comm": comm, "comm_by_level": vols,
+            "total": compute + comm}
+
+
+
+def bottleneck_objective(g: Graph, part: np.ndarray, anc: np.ndarray,
+                         lams=None, speeds: np.ndarray | None = None,
+                         c_comp: float = 1.0,
+                         vw: np.ndarray | None = None) -> float:
+    """The process-mapping bottleneck (makespan) objective
+    (Langguth/Schlag/Schulz): the *maximum* over PUs of modeled compute
+    plus per-level weighted deduplicated receive volume,
+
+        max_i  c_comp * w(b_i) / speed_i
+               + sum_l lams[l] * |halo_l(b_i)|.
+
+    What actually bounds a distributed CG iteration — unlike the summed
+    :func:`tree_objective`, concentrating either load or halo volume on
+    one PU is penalized even when the total stays flat.  Structurally it
+    is also what the padded tree runtime pays: the max block size sets
+    the padded rows B and the max per-level receive volume the halo slot
+    count S_lvl of ``sparse.distributed.build_plan_tree``."""
+    pp = per_pu_model_costs(g, part, anc, lams=lams, speeds=speeds,
+                            c_comp=c_comp, vw=vw)
+    return float(pp["total"].max(initial=0.0))
+
 
 
 def pod_cut_split(g: Graph, part: np.ndarray,

@@ -43,13 +43,20 @@ SIGNATURES = {
               "pdist_bf16": (_P, _P, _P, _L, _I, _I, _P)},
     "spmv_bell": {
         "spmv_bell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
-        "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P)},
+        "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
+        "spmv_bell_multi_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                                _P),
+        "spmv_bell_multi_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
+                                _P)},
     "flash": {"flash_attn_f32": _FLASH, "flash_attn_bf16": _FLASH},
     "flash_sm90": {"flash_sm90_bf16": _FLASH},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-_LAUNCHES = {name: 0 for name in SOURCES}
+# one count per kernel: a library may hold several (spmv_bell.cu holds
+# spmv_bell and spmv_bell_multi)
+KERNELS = ("pdist", "spmv_bell", "spmv_bell_multi", "flash", "flash_sm90")
+_LAUNCHES = {name: 0 for name in KERNELS}
 
 
 class KernelBuildError(RuntimeError):

@@ -47,6 +47,22 @@ def spmv_block_ell_ref(blocks: torch.Tensor, cols: torch.Tensor,
     return y if stacked else y[0]
 
 
+def spmv_block_ell_multi_ref(blocks: torch.Tensor, cols: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """Block-ELL SpMV of every column of an RHS batch: blocks (S, NNZB,
+    BM, BK), cols (S, NNZB), x (n, nb) -> (n, nb), in the blocks' dtype.
+    The einsum of :func:`spmv_block_ell_ref` with a column axis: the
+    TPU kernel under ``jax.vmap``.  x is read as zero past n."""
+    S, NNZB, BM, BK = blocks.shape
+    n, nb = x.shape
+    P = -(-n // BK)
+    xp = torch.zeros((P * BK, nb), dtype=blocks.dtype, device=x.device)
+    xp[:n] = x.to(blocks.dtype)
+    xg = xp.view(P, BK, nb)[cols.long()]             # (S, NNZB, BK, nb)
+    y = torch.einsum("sbmt,sbtj->smj", blocks, xg)
+    return y.reshape(S * BM, nb)[:n].contiguous()
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         scale: float | None = None) -> torch.Tensor:

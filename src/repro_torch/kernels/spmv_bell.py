@@ -8,12 +8,18 @@ panel indices:
 
 The converters are host NumPy, copied from
 ``src/repro/kernels/spmv_bell.py`` and bit-equal to it.
-``spmv_block_ell`` launches the hand-written CUDA kernel
-``csrc/spmv_bell.cu`` for tensors on the card; it replaces the Pallas TPU
-kernel ``src/repro/kernels/spmv_bell.py::_spmv_block_ell``.  The kernel
-streams the block array once and is bound by its bytes; the design note is
-in the source.  Tensors on the CPU go to the plain version
-(:func:`.ref.spmv_block_ell_ref`).
+``spmv_block_ell`` launches a hand-written CUDA kernel of
+``csrc/spmv_bell.cu`` for tensors on the card; they replace the Pallas TPU
+kernel ``src/repro/kernels/spmv_bell.py::_spmv_block_ell``:
+
+  * ``spmv_bell`` — one vector, or one per PU block of a stacked plan;
+  * ``spmv_bell_multi`` — an (n, nb) RHS batch, the TPU kernel under the
+    reference's ``jax.vmap`` (batched CG on ``bell``); it reads each block
+    once for all nb columns, where the vmapped kernel streams it nb times.
+
+Both stream the block array once and are bound by its bytes; the design
+notes are in the source.  Tensors on the CPU go to the plain versions
+(:func:`.ref.spmv_block_ell_ref`, :func:`.ref.spmv_block_ell_multi_ref`).
 """
 from __future__ import annotations
 
@@ -21,9 +27,11 @@ import numpy as np
 import torch
 
 from . import _build
-from .ref import spmv_block_ell_ref
+from .ref import spmv_block_ell_multi_ref, spmv_block_ell_ref
 
 _FN = {torch.float32: "spmv_bell_f32", torch.float64: "spmv_bell_f64"}
+_FN_MULTI = {torch.float32: "spmv_bell_multi_f32",
+             torch.float64: "spmv_bell_multi_f64"}
 MAX_BM = 32                       # one warp per stripe row, <= 1024 threads
 
 
@@ -137,17 +145,23 @@ def spmv_block_ell(blocks: torch.Tensor, cols: torch.Tensor,
     float64); x is cast to it, as the TPU kernel does.
 
     Single form: blocks (S, NNZB, BM, BK), cols (S, NNZB) int32, x (n,)
-    -> (n,).  Stacked form (one launch for every PU block of a distributed
-    plan): blocks (K, S, NNZB, BM, BK), cols (K, S, NNZB), x (K, n)
-    -> (K, n).  S must be ceil(n / BM)."""
+    -> (n,).  Batched form (``spmv_bell_multi``): the same blocks, x
+    (n, nb) -> (n, nb), column j being A @ x[:, j].  Stacked form (one
+    launch for every PU block of a distributed plan): blocks (K, S, NNZB,
+    BM, BK), cols (K, S, NNZB), x (K, n) -> (K, n).  S must be
+    ceil(n / BM)."""
+    multi = blocks.dim() == 4 and x.dim() == 2
     if blocks.device.type == "cpu" and cols.device.type == "cpu" \
             and x.device.type == "cpu":
-        return spmv_block_ell_ref(blocks, cols, x)
+        return (spmv_block_ell_multi_ref(blocks, cols, x) if multi
+                else spmv_block_ell_ref(blocks, cols, x))
     dev = blocks.device
     if dev.type != "cuda" or cols.device != dev or x.device != dev:
         raise ValueError(f"spmv_block_ell: blocks, cols and x must lie on "
                          f"one CUDA device (got {blocks.device}, "
                          f"{cols.device}, {x.device})")
+    if multi:
+        return _spmv_multi(blocks, cols, x)
     stacked = blocks.dim() == 5
     if not stacked:
         if blocks.dim() != 4:
@@ -156,12 +170,7 @@ def spmv_block_ell(blocks: torch.Tensor, cols: torch.Tensor,
                              f"BM, BK) nor (K, S, NNZB, BM, BK)")
         blocks, cols, x = blocks[None], cols[None], x[None]
     K, S, NNZB, BM, BK = blocks.shape
-    if blocks.dtype not in _FN:
-        raise TypeError(f"spmv_block_ell takes float32 or float64 blocks, "
-                        f"got {blocks.dtype}")
-    if cols.dtype != torch.int32:
-        raise TypeError(f"spmv_block_ell: cols must be int32, got "
-                        f"{cols.dtype}")
+    _check_types(blocks, cols)
     if x.dim() != 2 or x.shape[0] != K:
         raise ValueError(f"spmv_block_ell: x of shape {tuple(x.shape)} "
                          f"does not match {K} PU blocks")
@@ -170,12 +179,7 @@ def spmv_block_ell(blocks: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"spmv_block_ell: cols {tuple(cols.shape)} / "
                          f"blocks {tuple(blocks.shape)} do not fit x of "
                          f"length {n}")
-    if not 1 <= BM <= MAX_BM:
-        raise ValueError(f"spmv_block_ell: BM={BM} outside 1..{MAX_BM}")
-    x = x.to(blocks.dtype).contiguous()
-    if not (blocks.is_contiguous() and cols.is_contiguous()):
-        raise ValueError("spmv_block_ell: blocks and cols must be "
-                         "contiguous")
+    x = _check_layout(blocks, cols, x, BM)
     y = torch.empty((K, n), dtype=blocks.dtype, device=dev)
     fn_name = _FN[blocks.dtype]
     fn = _build.launcher("spmv_bell", fn_name)
@@ -186,3 +190,51 @@ def spmv_block_ell(blocks: torch.Tensor, cols: torch.Tensor,
     _build.check(err, fn_name)
     _build.count("spmv_bell")
     return y if stacked else y[0]
+
+
+def _check_types(blocks: torch.Tensor, cols: torch.Tensor) -> None:
+    if blocks.dtype not in _FN:
+        raise TypeError(f"spmv_block_ell takes float32 or float64 blocks, "
+                        f"got {blocks.dtype}")
+    if cols.dtype != torch.int32:
+        raise TypeError(f"spmv_block_ell: cols must be int32, got "
+                        f"{cols.dtype}")
+
+
+def _check_layout(blocks: torch.Tensor, cols: torch.Tensor, x: torch.Tensor,
+                  BM: int) -> torch.Tensor:
+    """Check the stripe height and the contiguity the kernels index by;
+    returns x in the blocks' dtype, contiguous."""
+    if not 1 <= BM <= MAX_BM:
+        raise ValueError(f"spmv_block_ell: BM={BM} outside 1..{MAX_BM}")
+    if not (blocks.is_contiguous() and cols.is_contiguous()):
+        raise ValueError("spmv_block_ell: blocks and cols must be "
+                         "contiguous")
+    return x.to(blocks.dtype).contiguous()
+
+
+def _spmv_multi(blocks: torch.Tensor, cols: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Launch ``spmv_bell_multi``: Y = A @ X for row-major X (n, nb)."""
+    S, NNZB, BM, BK = blocks.shape
+    _check_types(blocks, cols)
+    n, nb = x.shape
+    if tuple(cols.shape) != (S, NNZB) or S != -(-n // BM):
+        raise ValueError(f"spmv_block_ell: cols {tuple(cols.shape)} / "
+                         f"blocks {tuple(blocks.shape)} do not fit x of "
+                         f"shape {tuple(x.shape)}")
+    x = _check_layout(blocks, cols, x, BM)
+    y = torch.empty((n, nb), dtype=blocks.dtype, device=x.device)
+    if nb == 0:
+        return y
+    flag = torch.empty(1, dtype=torch.int32, device=x.device)
+    fn_name = _FN_MULTI[blocks.dtype]
+    fn = _build.launcher("spmv_bell", fn_name)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(blocks.data_ptr(), cols.data_ptr(), x.data_ptr(),
+                 y.data_ptr(), flag.data_ptr(), S, NNZB, BM, BK, n, nb,
+                 stream)
+    _build.check(err, fn_name)
+    _build.count("spmv_bell_multi")
+    return y

@@ -16,7 +16,9 @@ build the port's plans from a plan's fields as arrays, so a reference plan
 and a port plan can be the same plan.
 
 Runtime (stacked mode).  The reference runs one shard_map program per
-device; here the k blocks live in one ``(k, B)`` tensor.  Each round's
+device; here the k blocks live in one ``(k, B)`` tensor, or ``(k, B, nb)``
+for an RHS batch, whose trailing axis every schedule with a COO interior
+carries through (the reference's ``_bcol``).  Each round's
 ``ppermute`` becomes a gather over the block axis from a per-round ``(k,)``
 source-of-destination index plus a ``(k,)`` receive mask, both built on the
 device once; a tree level's suffix-indexed pairs fire in every subtree of
@@ -36,8 +38,10 @@ that level.  The schedules (``comm``):
 
 The interior matvec of ``halo`` / ``hier`` is an ``index_add_`` over padded
 COO (``local_format='coo'``) or the block-ELL CUDA kernel over the stacked
-``(k, S_b, NNZB, bm, bk)`` form (``'bell'``).  The reference's ``psum`` dot
-becomes a ``row_mask``-weighted sum over the whole ``(k, B)`` tensor.  The
+``(k, S_b, NNZB, bm, bk)`` form (``'bell'``, single-RHS as in the
+reference: it raises ``ValueError`` on a batched operand).  The
+reference's ``psum`` dot becomes a ``row_mask``-weighted sum over the
+whole ``(k, B)`` tensor, per column for a batch.  The
 mesh-only parts of the reference (the ``axis``/``mesh`` arguments,
 ``_validate_tree_axes``, ``abstract_mesh_for``) have no counterpart: one
 GPU has no device mesh.
@@ -116,6 +120,9 @@ class DistPlan:
     _cols_global: torch.Tensor = None
     _bell: dict = dataclasses.field(default_factory=dict)
     _bj_inv: torch.Tensor = None    # lazy (k, B, B) block-Jacobi inverses
+    # host intermediates for O(delta) replanning (sparse/replan.py); None
+    # on a plan built without a cache
+    _replan: object = None
 
     @property
     def cols_global(self) -> torch.Tensor:
@@ -133,7 +140,8 @@ class DistPlan:
 
     def scatter_vec(self, x: np.ndarray) -> np.ndarray:
         """(n,) global vector -> (k, B) padded block-major layout (host).
-        Padding rows stay zero."""
+        An (n, nb) RHS batch scatters to (k, B, nb); padding rows stay
+        zero in every column."""
         x = np.asarray(x)
         dt = x.dtype if np.issubdtype(x.dtype, np.floating) else np.float32
         out = np.zeros((self.k, self.B) + x.shape[1:], dtype=dt)
@@ -141,7 +149,8 @@ class DistPlan:
         return out
 
     def gather_vec(self, xb) -> np.ndarray:
-        """(k, B) array or tensor -> (n,) global order (host)."""
+        """(k, B[, nb]) array or tensor -> (n[, nb]) global order
+        (host)."""
         if isinstance(xb, torch.Tensor):
             xb = xb.cpu().numpy()
         return np.asarray(xb)[self.perm // self.B, self.perm % self.B]
@@ -893,8 +902,8 @@ def _derive_tree_fields_np(rows_a: np.ndarray, cols_a: np.ndarray,
 
     Besides the packed segments it returns the per-edge segment
     bookkeeping (``seg_lvl``/``seg_pos``/``seg_counts``, ``row_lvl`` and
-    the diagonal entry positions) that the reference's incremental replan
-    patches segments with (ROADMAP.md queue 1 item 6).
+    the diagonal entry positions) that :mod:`.replan` patches segments
+    with.
     """
     k, nnz_pad = rows_a.shape
     h = len(offs) - 1
@@ -957,7 +966,8 @@ def _derive_tree_fields(rows_a: np.ndarray, cols_a: np.ndarray,
     plan's boundary set is the union of the level segments.  The
     interior criterion (no halo reads at all) is identical to the flat
     plan's, so the interior segment is bit-equal to :func:`build_plan`'s
-    on the same partition.
+    on the same partition.  ``_host`` carries the raw output for the
+    replan cache (popped by :func:`build_plan_tree`).
     """
     host = _derive_tree_fields_np(rows_a, cols_a, vals_a, per_blk, B, offs)
     rows_int, cols_int, vals_int = host["int_seg"]
@@ -968,14 +978,14 @@ def _derive_tree_fields(rows_a: np.ndarray, cols_a: np.ndarray,
         cols_bnd_lvl=tuple(c for _, c, _ in lvl_seg),
         vals_bnd_lvl=tuple(v for _, _, v in lvl_seg),
         diag=host["diag"], nnz_blk=host["nnz_blk"],
-        _bnd_row=host["row_lvl"] >= 0,
+        _bnd_row=host["row_lvl"] >= 0, _host=host,
     )
 
 
 def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
                     data: np.ndarray, part: np.ndarray,
                     tree, k: int, fanouts=None,
-                    device=None) -> TreePlan:
+                    device=None, cache: bool = True) -> TreePlan:
     """Build the arbitrary-depth distributed plan for a tree mesh.
 
     ``tree`` is anything ``core.topology.normalize_tree_of`` accepts: a
@@ -997,9 +1007,10 @@ def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
     over tree levels, quotient edges and chunks, as in
     :func:`build_plan`.  Host NumPy copied from the reference and
     bit-equal to it; the device fields go to ``device`` (default the
-    card).  The reference's ``validate=`` and its ``cache=`` replan
-    capture are not ported (ROADMAP.md queue 1 items 10 and 6): the plan
-    carries no replan cache.
+    card).  ``cache=True`` keeps the host intermediates that
+    :func:`.replan.apply_edge_delta` patches in O(delta) (``plan._replan``;
+    None for a non-canonical CSR).  The reference's ``validate=`` is not
+    ported (ROADMAP.md queue 1 item 10).
     """
     device = resolve_device(device)
     n = len(indptr) - 1
@@ -1091,9 +1102,29 @@ def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
 
     split = _derive_tree_fields(rows_a, cols_a, vals_a, per_blk, B, offs)
     bnd_row = split.pop("_bnd_row")
+    host_split = split.pop("_host")
     interior_mask = row_mask * ~bnd_row
 
-    return tree_plan_from_arrays(dict(
+    # host intermediates for O(delta) patching (sparse/replan.py); a
+    # canonical sorted CSR is required, so a non-canonical input simply
+    # gets no cache
+    replan_cache = None
+    if cache:
+        from .replan import capture_replan_cache
+        replan_cache = capture_replan_cache(
+            indptr=np.asarray(indptr), indices=dst,
+            data=np.asarray(data), src=src,
+            part=part, order=order, rank_in_block=rank_in_block,
+            sizes=sizes, B=B, k=k, n=n, fanouts=fanouts_out,
+            suffix=tuple(suffix), flat=flat, o2=o2, ext=ext,
+            ext_keys=ext_keys, psrc=psrc,
+            t_pair=t_pair_all, t_v=t_v_all, t_lvl=t_lvl,
+            slot_of_trip=slot_of_trip, offs=offs,
+            rows_a=rows_a, cols_a=cols_a, vals_a=vals_a,
+            per_blk=per_blk, pos_edge=pos_edge,
+            row_mask=row_mask, host=host_split)
+
+    plan = tree_plan_from_arrays(dict(
         k=k, B=B, S=max(S_lvl), n_rounds=sum(R_lvl), n=n, perm=perm,
         block_of=block_of, sizes=sizes, rows=rows_a, cols=cols_a,
         vals=vals_a, row_mask=row_mask, interior_mask=interior_mask,
@@ -1101,6 +1132,8 @@ def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
         S_lvl=S_lvl, n_rounds_lvl=R_lvl, send_idx_lvl=si_lvl,
         send_mask_lvl=sm_lvl, round_perms_lvl=perms_lvl,
         _pack_blk=own, _pack_pos=pos_edge, _pack_dst=dst), device)
+    plan._replan = replan_cache
+    return plan
 
 
 def build_plan_hier(indptr: np.ndarray, indices: np.ndarray,
@@ -1153,9 +1186,10 @@ def _round_tables(round_perms, n_rounds: int, k: int, size: int,
 
 
 def _make_exchange(plan: DistPlan) -> Callable:
-    """``x (k, B) -> x_ext (k, W)``: x followed by every round's received
-    slots, level by level for a :class:`TreePlan` (``[x | level-0 slots |
-    ... | level-(h-1) slots]``), in the reference's slot layout."""
+    """``x (k, B[, nb]) -> x_ext (k, W[, nb])``: x followed by every
+    round's received slots, level by level for a :class:`TreePlan` (``[x |
+    level-0 slots | ... | level-(h-1) slots]``), in the reference's slot
+    layout."""
     k = plan.k
     if isinstance(plan, TreePlan):
         levels = zip(plan.send_idx_lvl, plan.send_mask_lvl,
@@ -1175,10 +1209,15 @@ def _make_exchange(plan: DistPlan) -> Callable:
 
     def exchange(x):
         parts = [x]
+        cols = tuple(x.shape[2:])                # () or (nb,)
         for idx, mask, src_of, recv_mask, rounds in tables:
-            sends = torch.gather(x, 1, idx).view(mask.shape) * mask
-            recv = sends.transpose(0, 1)[rounds, src_of] * recv_mask
-            parts.append(recv.transpose(0, 1).reshape(k, -1))
+            gidx = idx.view(idx.shape + (1,) * len(cols)).expand(
+                idx.shape + cols)
+            sends = torch.gather(x, 1, gidx).view(mask.shape + cols)
+            sends = sends * _bcol(mask, sends)
+            recv = sends.transpose(0, 1)[rounds, src_of]
+            recv = recv * _bcol(recv_mask, recv)
+            parts.append(recv.transpose(0, 1).reshape((k, -1) + cols))
         return torch.cat(parts, dim=1)
 
     return exchange
@@ -1193,10 +1232,18 @@ def _flat_coo(rows, cols, vals, B: int, W: int):
             (boff * W + cols.long()).reshape(-1), vals.reshape(-1))
 
 
+def _bcol(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Align a per-row weight or mask with ``x``'s trailing RHS axes (the
+    reference's ``_bcol``)."""
+    return m.reshape(tuple(m.shape) + (1,) * (x.dim() - m.dim()))
+
+
 def _accumulate(y, coo, xw):
-    """y[rows] += vals * xw[cols] over flat indices (``index_add_``)."""
+    """y[rows] += vals * xw[cols] over flat indices (``index_add_``); ``y``
+    is (k*B[, nb]) and ``xw`` (k, W[, nb])."""
     r, c, v = coo
-    return y.index_add_(0, r, v * xw.reshape(-1)[c])
+    xf = xw.reshape((-1,) + tuple(xw.shape[2:]))[c]
+    return y.index_add_(0, r, _bcol(v, xf) * xf)
 
 
 def _check_modes(plan: DistPlan, comm: str, local_format: str) -> None:
@@ -1233,7 +1280,8 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
          else B + plan.n_rounds * plan.S)
 
     def zeros(x):
-        return torch.zeros(k * B, dtype=x.dtype, device=x.device)
+        return torch.zeros((k * B,) + tuple(x.shape[2:]), dtype=x.dtype,
+                           device=x.device)
 
     if comm == "allgather":
         # the gathered (k*B,) vector is the stacked tensor itself
@@ -1262,6 +1310,12 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
             blocks, bcols = plan.bell_local()
 
             def interior(x):
+                if x.dim() > 2:
+                    raise ValueError(
+                        "local_format='bell' is single-RHS (the block-ELL "
+                        "interior of the distributed schedules is a vector "
+                        "kernel, as in the reference); use "
+                        "local_format='coo' for batched solves")
                 return spmv_block_ell(blocks, bcols, x).reshape(-1)
 
         def fn(x):
@@ -1272,14 +1326,12 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
             return y
 
     def matvec(x):
-        if tuple(x.shape) != (k, B):
-            if tuple(x.shape[:2]) == (k, B):
-                raise NotImplementedError(
-                    "batched RHS is not ported yet; see ROADMAP.md queue 1 "
-                    "item 7")
+        if tuple(x.shape[:2]) != (k, B) or x.dim() > 3:
             raise ValueError(f"operand of shape {tuple(x.shape)} is not "
-                             f"({k}, {B})")
-        return fn(x).view(k, B) * row_mask
+                             f"({k}, {B}) or ({k}, {B}, nb)")
+        return fn(x).view(x.shape) * _bcol(row_mask, x)
+
+    matvec.batch_native = True
 
     return matvec
 
@@ -1287,13 +1339,16 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
 def block_jacobi_preconditioner(plan: DistPlan) -> Callable:
     """z = M^-1 r with M = blockdiag(A_bb), the per-PU diagonal blocks
     (:meth:`DistPlan.block_jacobi_inv`), as one batched ``(k, B, B) x
-    (k, B)`` product.  Ghost rows are identity in M^-1 and their residuals
-    exactly zero, so padding stays out of the Krylov space."""
+    (k, B[, nb])`` product.  Ghost rows are identity in M^-1 and their
+    residuals exactly zero, so padding stays out of the Krylov space."""
     minv = plan.block_jacobi_inv()
 
     def apply(r):
+        if r.dim() == 3:
+            return torch.bmm(minv.to(r.dtype), r)
         return torch.bmm(minv.to(r.dtype), r.unsqueeze(-1)).squeeze(-1)
 
+    apply.batch_native = True
     return apply
 
 
@@ -1302,9 +1357,11 @@ def make_dist_cg(plan: DistPlan, tol: float = 1e-6, max_iters: int = 500,
                  precondition: str | None = None) -> Callable:
     """Whole-CG solve on (k, B) operands: the chunked ``cg.cg_solve`` with
     the stacked matvec and the ``row_mask``-weighted dot (the reference's
-    psum-reduced local dot).  ``precondition='jacobi'`` uses the plan's
-    on-device diagonal, ``'block_jacobi'`` the per-PU diagonal blocks.
-    Returns ``solve(b) -> (x, residual, iters)``."""
+    psum-reduced local dot).  A (k, B, nb) operand runs the multi-RHS
+    masked loop and gives (nb,) residuals and iterations.
+    ``precondition='jacobi'`` uses the plan's on-device diagonal,
+    ``'block_jacobi'`` the per-PU diagonal blocks.  Returns ``solve(b) ->
+    (x, residual, iters)``."""
     if precondition not in (None, "jacobi", "block_jacobi"):
         raise ValueError(f"unknown precondition {precondition!r}")
     matvec = make_dist_spmv(plan, comm, local_format)
@@ -1316,11 +1373,13 @@ def make_dist_cg(plan: DistPlan, tol: float = 1e-6, max_iters: int = 500,
         prec = block_jacobi_preconditioner(plan)
 
     def dot(u, v):
-        return (u * row_mask * v).sum()
+        return (u * _bcol(row_mask, u) * v).sum((0, 1))
+
+    dot.batch_native = True                     # one sum per column
 
     def solve(b):
         res = cg_solve(matvec, b, tol=tol, max_iters=max_iters, dot=dot,
-                       precondition=prec)
+                       precondition=prec, batched=b.dim() == 3)
         return res.x, res.residual, res.iters
 
     return solve

@@ -18,8 +18,15 @@ port of ``src/repro/sparse/operator.py``, all eight of its backends):
 An Operator has ``n``, ``matvec(x)`` and ``dot(u, v)`` in operator space
 ((n,) single-device, (k, B) padded block-major distributed), ``diag()``,
 ``scatter(x)`` (host (n,) vector -> operator space on the device) and
-``gather(y)`` (operator space -> host (n,) vector).  Host float64 input is
+``gather(y)`` (operator space -> host (n,) vector).  An (n, nb) RHS batch
+scatters to (n, nb) / (k, B, nb) and gathers back.  Host float64 input is
 narrowed to float32, as ``jnp.asarray`` does in the reference.
+
+``batch_native`` (every backend but ``dist_bell`` / ``dist_hier_bell``,
+which raise on a batched operand as the reference does): the matvec takes
+a trailing RHS axis whole, so batched CG hands it the (..., nb) operand.
+``bell`` is batch native through its multi-column kernel, where the
+reference ``jax.vmap``s its Pallas kernel over the columns.
 """
 from __future__ import annotations
 
@@ -62,12 +69,16 @@ class Operator(Protocol):
 @dataclasses.dataclass
 class CooOperator:
     """Padded-COO SpMV (any sparsity).  ``rows``/``cols`` are held as int64
-    on the device, ready for ``index_add_``."""
+    on the device, ready for ``index_add_``, which carries a trailing RHS
+    axis through natively."""
 
     n: int
     rows: torch.Tensor
     cols: torch.Tensor
     vals: torch.Tensor
+
+    batch_native = True
+    dot = staticmethod(vdot)
 
     @classmethod
     def from_csr(cls, indptr, indices, data, nnz_pad: int | None = None,
@@ -87,9 +98,6 @@ class CooOperator:
     def matvec(self, x):
         return spmv_coo(self.rows, self.cols, self.vals, x, n=self.n)
 
-    def dot(self, u, v):
-        return vdot(u, v)
-
     def diag(self):
         """On-device diagonal extraction from the padded-COO triples."""
         on_diag = torch.where(self.rows == self.cols, self.vals,
@@ -107,13 +115,17 @@ class CooOperator:
 
 @dataclasses.dataclass
 class BlockEllOperator:
-    """Block-ELL SpMV through the CUDA kernel (its plain version on the
-    CPU)."""
+    """Block-ELL SpMV through the CUDA kernels (their plain version on the
+    CPU): ``spmv_bell`` for an (n,) operand, ``spmv_bell_multi`` for an
+    (n, nb) batch, which reads each block once for all columns."""
 
     n: int
     blocks: torch.Tensor
     cols: torch.Tensor
     diag_: torch.Tensor
+
+    batch_native = True
+    dot = staticmethod(vdot)
 
     @classmethod
     def from_csr(cls, indptr, indices, data, bm: int = 8, bk: int = 128,
@@ -133,9 +145,6 @@ class BlockEllOperator:
 
     def matvec(self, x):
         return spmv_block_ell(self.blocks, self.cols, x)
-
-    def dot(self, u, v):
-        return vdot(u, v)
 
     def diag(self):
         return self.diag_
@@ -162,14 +171,19 @@ class DistributedOperator:
     interior matvec — ``'coo'`` ``index_add_`` or ``'bell'`` (the
     block-ELL kernel; ``comm='halo'`` or ``'hier'``).
 
-    Operator space is the (k, B) padded block-major layout, and ``dot`` is
-    a plain sum because ghost rows are zero in both vectors.  ``solve``
-    runs the whole CG with the ``row_mask``-weighted dot of the
-    reference's fused program."""
+    Operator space is the (k, B[, nb]) padded block-major layout, and
+    ``dot`` is a plain sum because ghost rows are zero in both vectors.
+    ``solve`` runs the whole CG with the ``row_mask``-weighted dot of the
+    reference's fused program.  ``batch_native``: the schedules carry a
+    trailing RHS axis; ``local_format='bell'`` raises ``ValueError`` on it,
+    as the reference does."""
 
     plan: DistPlan
     comm: str = "halo"
     local_format: str = "coo"
+
+    batch_native = True
+    dot = staticmethod(vdot)
 
     def __post_init__(self):
         self.n = self.plan.n
@@ -211,22 +225,20 @@ class DistributedOperator:
     def matvec(self, x):
         return self._spmv(x)
 
-    def dot(self, u, v):
-        return vdot(u, v)
-
     def diag(self):
         return self.plan.diag
 
     def block_jacobi_preconditioner(self):
         """z = M^-1 r with M = blockdiag(A_bb): one batched (B, B) product
-        per block from the plan's cached inverses."""
+        per block (one ``bmm`` over an RHS batch) from the plan's cached
+        inverses."""
         return block_jacobi_preconditioner(self.plan)
 
     def fused_solver(self, tol: float = 1e-6, max_iters: int = 500,
                      precondition: str | None = None):
         """The cached whole-CG solver on *operator-space* operands
-        ((k, B) -> (x, residual, iters)) — what :meth:`solve` runs after
-        scattering."""
+        ((k, B[, nb]) -> (x, residual, iters)) — what :meth:`solve` runs
+        after scattering."""
         key = (tol, max_iters, precondition)
         fused = self._fused.get(key)
         if fused is None:
@@ -243,11 +255,9 @@ class DistributedOperator:
 
     def solve(self, b, tol: float = 1e-6, max_iters: int = 500,
               precondition: str | None = None) -> CGResult:
-        """Whole CG on a (n,) global right-hand side (host array);
-        returns the result in operator space."""
-        if np.ndim(b) != 1:
-            raise NotImplementedError("batched RHS is not ported yet; see "
-                                      "ROADMAP.md queue 1 item 7")
+        """Whole CG on a (n,) global right-hand side (host array), or an
+        (n, nb) RHS batch, which runs the multi-RHS masked loop and returns
+        per-column iters / residual; the result is in operator space."""
         fused = self.fused_solver(tol, max_iters, precondition)
         x, res, it = fused(self.scatter(b))
         return CGResult(x=x, iters=it, residual=res)
@@ -316,14 +326,18 @@ def cg_solve_global(op: Operator, b: np.ndarray, tol: float = 1e-6,
                     max_iters: int = 500, precondition: str | None = None,
                     device=None) -> tuple[np.ndarray, int, float]:
     """Scatter -> CG -> gather.  Returns (x_global, iters, res) on the
-    host.  ``device`` (default the card) must be the operator's device."""
+    host.  ``device`` (default the card) must be the operator's device.
+
+    A 2-D ``b`` of shape (n, nb) is an RHS batch: the multi-RHS masked
+    loop runs every column and iters / res come back as (nb,) arrays."""
     device = resolve_device(device)
     if op.device.type != device.type:
         raise ValueError(f"operator lives on {op.device}, not {device}")
-    if np.ndim(b) != 1:
-        raise NotImplementedError("batched RHS is not ported yet; see "
-                                  "ROADMAP.md queue 1 item 7")
+    batched = np.ndim(b) == 2
     res = cg_solve(op, op.scatter(b), tol=tol, max_iters=max_iters,
-                   precondition=precondition)
+                   precondition=precondition, batched=batched)
+    if batched:
+        return (op.gather(res.x), res.iters.cpu().numpy(),
+                res.residual.cpu().numpy())
     return (op.gather(res.x), int(res.iters.cpu()),
             float(res.residual.cpu()))

@@ -269,16 +269,32 @@ def test_block_jacobi_needs_a_distributed_operator(system):
     ("dist_halo_seq", {}), ("dist_allgather", {}),
     ("dist_hier", {"pods": 2}), ("dist_hier_bell", {"fanouts": (2, 2, 2)})])
 def test_batched_rhs_names_its_roadmap_item(system, backend, tree_kw):
+    """A batched RHS (queue 1 item 7, ported): the COO schedules carry it
+    through matvec, the fused solve and ``cg_solve_global``; the block-ELL
+    interior is single-RHS and raises ``ValueError``, as the reference's
+    does."""
     g, (indptr, indices, data), A, part, b = system
     op = make_operator(indptr, indices, data, backend, part=part, k=8,
                        device="cpu", **tree_kw)
     bb = np.stack([b, 2 * b], axis=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        op.solve(bb)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cg_solve_global(op, bb, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        op.matvec(op.scatter(bb))
+    if backend.endswith("_bell"):
+        for call in (lambda: op.solve(bb),
+                     lambda: cg_solve_global(op, bb, device="cpu"),
+                     lambda: op.matvec(op.scatter(bb))):
+            with pytest.raises(ValueError, match="single-RHS"):
+                call()
+    else:
+        np.testing.assert_allclose(op.gather(op.matvec(op.scatter(bb))),
+                                   A @ bb, rtol=1e-4, atol=1e-4)
+        x, iters, _ = cg_solve_global(op, bb, device="cpu")
+        res = op.solve(bb)
+        assert iters.shape == tuple(res.iters.shape) == (2,)
+        for j in range(2):
+            xs, it, _ = cg_solve_global(op, bb[:, j], device="cpu")
+            scale = np.abs(xs).max()
+            assert np.abs(x[:, j] - xs).max() / scale < 1e-5
+            assert np.abs(op.gather(res.x)[:, j] - xs).max() / scale < 1e-5
+            assert abs(int(iters[j]) - it) <= 2
     with pytest.raises(ValueError, match="not"):
         op.matvec(torch.zeros(op.plan.k, op.plan.B + 1))
 

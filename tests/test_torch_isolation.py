@@ -56,12 +56,14 @@ def _tiny():
 @pytest.mark.parametrize("entry", ["partition", "make_operator",
                                    "build_plan", "cg_solve_global",
                                    "models.transformer.init_model",
-                                   "launch.serve.serve_tokens"])
+                                   "launch.serve.serve_tokens",
+                                   "launch.serve.SolverService",
+                                   "launch.serve.main --solver"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import partition
     from repro_torch.core.topology import Topology, scale_to_load
-    from repro_torch.launch.serve import serve_tokens
+    from repro_torch.launch.serve import SolverService, main, serve_tokens
     from repro_torch.models.transformer import init_model
     from repro_torch.sparse.distributed import build_plan
     from repro_torch.sparse.operator import cg_solve_global, make_operator
@@ -79,6 +81,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             get_config("qwen1.5-0.5b", smoke=True)),
         "launch.serve.serve_tokens": lambda: serve_tokens(
             get_config("qwen1.5-0.5b", smoke=True), gen=1),
+        "launch.serve.SolverService": lambda: SolverService(
+            backend="dist_halo", part=part, k=2),
+        "launch.serve.main --solver": lambda: main(
+            ["--solver", "--requests", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

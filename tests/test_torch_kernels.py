@@ -130,8 +130,11 @@ def test_cpu_path_launches_nothing():
                                        A.data.astype(np.float32), 64)
     spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols),
                    torch.ones(64))
+    spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols),
+                   torch.ones(64, 3))
     flash_attention(*(torch.ones(1, 2, 16, 16),) * 3)
-    assert _build.launches() == {"pdist": 0, "spmv_bell": 0, "flash": 0,
+    assert _build.launches() == {"pdist": 0, "spmv_bell": 0,
+                                 "spmv_bell_multi": 0, "flash": 0,
                                  "flash_sm90": 0}
 
 

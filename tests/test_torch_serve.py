@@ -91,9 +91,13 @@ def test_non_dense_arch_raises(arch):
                     "--gen", "1"])
 
 
-def test_solver_mode_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        serve.main(["--solver", "--device", "cpu"])
+def test_solver_mode_raises(monkeypatch):
+    """``--solver`` is ported (``tests/test_torch_solver_service.py`` runs
+    it on the CPU); without ``--device`` it takes the card, and without a
+    card it raises instead of falling back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--solver", "--requests", "1"])
 
 
 def test_bf16_serves():

@@ -161,25 +161,29 @@ def test_float32_tiny_scale_converges():
 
 
 def test_unported_modes_name_their_roadmap_item(system):
-    """What stays unported: batched multi-RHS CG and a batched RHS on any
-    backend (queue 1 item 7).  Every reference backend and preconditioner
-    is ported, so only unknown names and missing arguments raise
-    otherwise."""
+    """Batched multi-RHS CG (queue 1 item 7) is ported: a batched RHS
+    solves on ``coo``, ``dist_halo`` and ``dist_hier`` through every entry
+    point, with per-column iterations.  Every reference backend and
+    preconditioner is ported, so only unknown names and missing arguments
+    raise."""
     (indptr, indices, data), A, b = system
     bb = np.stack([b, 2 * b], axis=1)
     op = make_operator(indptr, indices, data, "coo", device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cg_solve(op, op.scatter(b), batched=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        cg_solve_global(op, bb, device="cpu")
+    res = cg_solve(op, op.scatter(b)[:, None], batched=True)
+    assert res.iters.shape == (1,) and res.x.shape == (op.n, 1)
+    x, iters, resid = cg_solve_global(op, bb, device="cpu")
+    assert x.shape == (op.n, 2) and iters.shape == resid.shape == (2,)
+    np.testing.assert_allclose(x[:, 1], 2 * x[:, 0], rtol=1e-4, atol=1e-6)
     part = np.arange(op.n) % 4
     for backend, kw in (("dist_halo", {}), ("dist_hier", {"pods": 2})):
         dop = make_operator(indptr, indices, data, backend, part=part, k=4,
                             device="cpu", **kw)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            dop.solve(bb)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            cg_solve(dop, dop.scatter(bb), batched=True)
+        fused = dop.solve(bb)
+        composed = cg_solve(dop, dop.scatter(bb), batched=True)
+        for res in (fused, composed):
+            assert res.iters.shape == (2,)
+            np.testing.assert_allclose(dop.gather(res.x), x, rtol=1e-4,
+                                       atol=1e-5)
     with pytest.raises(ValueError):
         make_operator(indptr, indices, data, "nope", device="cpu")
     with pytest.raises(ValueError):
