@@ -7,24 +7,32 @@ Phases (any failure exits non-zero and prints no result line):
   1. device banner (name, nvidia-smi power limit);
   2. build the CUDA kernels from src/repro_torch/kernels/csrc (nvcc, sm_90a,
      one nvcc per source, all started together);
-  3. hold pdist, spmv_bell and spmv_bell_multi (nb = 1, 3, 16 and 33, f32
-     and f64) against their plain PyTorch versions;
+  3. hold pdist, and the block-ELL kernel (spmv_sell, over the blocks'
+     nonzeros) in each form (single, also without an index; stacked over
+     three PU blocks; batched with nb = 1, 3, 16 and 33; f32 and f64),
+     against their plain PyTorch versions and scipy, and an Inf and a NaN
+     in x against the dense product's pattern;
   4. sparse path at full size, through the entry points: grid((side,
      side)) Laplacian -> Algorithm 1 on topo1(8) -> geoKM partition with the
      pdist kernel -> build_plan -> make_operator for dist_halo and
      dist_bell -> op.solve, checked against scipy; the launch counts are
-     reset just before this phase and read just after it;
+     reset just before this phase and read just after it (dist_bell must
+     launch the sell route);
   4b. geoKM again from the same seed: the same partition, vertex for
      vertex;
   5. sparse numbers: phase seconds, CG iterations, per-iteration and
-     per-matvec times, pdist and spmv_bell at their main-path shapes
-     beside their plain versions, a library call and their bounds;
+     per-matvec times, pdist and the sell route at their main-path shapes
+     beside their plain versions, a library call (the stacked one without
+     and with the plan's padding rows) and their bounds (the block-ELL
+     rows on the nonzeros, with the block stream as the floor of a kernel
+     that streams the blocks);
   5b. the other exchange schedules on the same system, partition and
      right-hand side, each through ``make_operator`` and ``op.solve`` with
      the counts reset just before and read just after: dist_halo_seq,
      dist_allgather, dist_hier on two pods (``topo.pod_assignment(2)``)
      and on the tree fanouts (2, 2, 2), dist_hier_bell on two pods (which
-     must launch spmv_bell; the others never do); each solution against
+     must launch the sell route; the others never do); each solution
+     against
      scipy and against dist_halo's, with its plan seconds, rounds per
      level, matvec and CG iteration times and peak memory;
   5c. block-Jacobi PCG on grid((96, 96)), where the dense (k, B, B)
@@ -35,12 +43,13 @@ Phases (any failure exits non-zero and prints no result line):
      4's system, topology and partition, buckets (1, 2, 4, 8, 16): a
      dist_halo service over two matrices (shift 1e-2 and 2e-2) serving
      ``SOLVER_REQUESTS`` batched requests of widths 1-16; a bell service
-     (the multi-column kernel, one launch per matvec) serving widths 16
-     and 3, each column against its own single-column solve; a dist_hier
+     (the sell route, one launch per matvec) serving widths 16 and 3,
+     each column against its own single-column solve; a dist_hier
      service on two pods taking a value delta (an O(delta) plan patch)
      and a cross-partition insertion (a drift trip, a rebuild and an
      exact migration of the solver state); one JSON line per request and
-     per update, and spmv_bell_multi's times at nb = 1, 4 and 16;
+     per update, and the block-ELL kernel's times on the 1024^2 blocks
+     for an (n,) x and at nb = 1, 4 and 16;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
@@ -93,6 +102,7 @@ PEAK_FLOPS = {                   # H100 SXM data sheet, dense
     "tf32": 495e12,              # TF32 tensor cores
 }
 SOLVER_REQUESTS = 8              # requests of phase 5d's dist_halo service
+BELL_COUNTS = ("spmv_bell:sell", "spmv_bell_multi:sell")   # block-ELL
 
 
 class SmokeFailure(RuntimeError):
@@ -152,8 +162,9 @@ def limit_share(got, want, atol: float, rtol: float) -> float:
 
 
 def sparse_path(args, dev, gen, emit) -> list[dict]:
-    """Phases 3-5: pdist and spmv_bell against their plain versions, the
-    sparse path at full size, its numbers.  Returns the two kernel rows."""
+    """Phases 3-5: pdist and the block-ELL kernel against their plain
+    versions, the sparse path at full size, its numbers.  Returns the
+    sparse kernel rows."""
     import numpy as np
     import scipy.sparse as sp
     import torch
@@ -166,10 +177,8 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.kernels import _build
     from repro_torch.kernels.pdist import pairwise_sqdist
     from repro_torch.kernels.ref import (pairwise_sqdist_ref,
-                                         spmv_block_ell_multi_ref,
-                                         spmv_block_ell_ref)
-    from repro_torch.kernels.spmv_bell import (csr_to_block_ell,
-                                               spmv_block_ell)
+                                         spmv_block_ell_ref, spmv_sell_ref)
+    from repro_torch.kernels.spmv_bell import bell_index, spmv_block_ell
     from repro_torch.sparse.generators import grid
     from repro_torch.sparse.graph import laplacian_csr
     from repro_torch.sparse.operator import make_operator
@@ -192,63 +201,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
             check(ok, f"pdist {dt} {(n, k, d)} disagrees with its plain "
                       f"version: {err}")
             errs.setdefault("pdist", err)
-    g256 = grid((256, 256))
-    ip, ix, dat = laplacian_csr(g256, shift=1e-2)
-    A256 = sp.csr_matrix((dat, ix, ip), shape=(g256.n, g256.n))
-    x256 = np.random.default_rng(args.seed).normal(
-        size=g256.n).astype(np.float32)
-    for bm, bk in ((8, 128), (16, 128), (8, 256), (16, 256)):
-        blocks, cols, _ = csr_to_block_ell(ip, ix, dat, g256.n, bm=bm,
-                                           bk=bk)
-        bt = torch.from_numpy(blocks).to(dev)
-        ct = torch.from_numpy(cols).to(dev)
-        xt = torch.from_numpy(x256).to(dev)
-        got = spmv_block_ell(bt, ct, xt)
-        ok, err = close(got, spmv_block_ell_ref(bt, ct, xt), 1e-4, 1e-4)
-        ok_sp, err_sp = close(got.cpu(), torch.from_numpy(A256 @ x256),
-                              1e-4, 1e-4)
-        emit(check="spmv_bell", grid=256, bm=bm, bk=bk,
-             nnzb=int(cols.shape[1]), max_abs_err=err,
-             max_abs_err_scipy=err_sp, tol=1e-4, ok=ok and ok_sp)
-        check(ok and ok_sp, f"spmv_bell bm={bm} bk={bk} disagrees: "
-                            f"{err} (plain) / {err_sp} (scipy)")
-        # the batched form: nb = 33 takes the column-chunk loop
-        for dt in (torch.float32, torch.float64):
-            for nb in (1, 3, 16, 33):
-                xm = np.random.default_rng(args.seed + nb).normal(
-                    size=(g256.n, nb))
-                bd, xd = bt.to(dt), torch.from_numpy(xm).to(dev).to(dt)
-                got = spmv_block_ell(bd, ct, xd)
-                ok, err = close(got, spmv_block_ell_multi_ref(bd, ct, xd),
-                                1e-4, 1e-4)
-                ok_sp, err_sp = close(got.cpu(), torch.from_numpy(
-                    A256 @ xm.astype(np.float32 if dt == torch.float32
-                                     else np.float64)), 1e-4, 1e-4)
-                emit(check="spmv_bell_multi", grid=256, bm=bm, bk=bk, nb=nb,
-                     dtype=str(dt), max_abs_err=err,
-                     max_abs_err_scipy=err_sp, tol=1e-4, ok=ok and ok_sp)
-                check(ok and ok_sp, f"spmv_bell_multi bm={bm} bk={bk} "
-                      f"nb={nb} {dt} disagrees: {err} (plain) / {err_sp} "
-                      f"(scipy)")
-                errs["spmv_bell_multi"] = max(errs.get("spmv_bell_multi",
-                                                       0.0), err)
-            # an Inf and a NaN in X spread as in the dense product (nb =
-            # 33 takes the flagged chunked kernel, nb = 1 the single one)
-            xd[5, 1], xd[700, 4] = float("inf"), float("nan")
-            for xb in (xd, xd[:, 1:2].contiguous()):
-                got = spmv_block_ell(bd, ct, xb)
-                want = spmv_block_ell_multi_ref(bd, ct, xb)
-                fin = torch.isfinite(want)
-                same = (torch.equal(torch.isnan(got), torch.isnan(want))
-                        and torch.equal(torch.isinf(got), torch.isinf(want)))
-                ok, err = close(got[fin], want[fin], 1e-4, 1e-4)
-                emit(check="spmv_bell_multi_non_finite", grid=256, bm=bm,
-                     bk=bk, nb=xb.shape[1], dtype=str(dt),
-                     non_finite_rows=int((~fin).any(dim=1).sum()),
-                     same_pattern=same, max_abs_err=err, ok=ok and same)
-                check(ok and same, f"spmv_bell_multi bm={bm} bk={bk} "
-                      f"nb={xb.shape[1]} {dt}: an Inf/NaN in X spreads "
-                      f"unlike the dense product")
+    bell_checks(args, dev, gen, emit, errs)
     torch.cuda.synchronize()
 
     # ---- 4. main path ---------------------------------------------------
@@ -290,12 +243,22 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     bell_op_s = time.perf_counter() - t0
     plan = op_b.plan
     blocks, bcols = plan.bell_local()
+    index = plan.bell_index()
     bell_bytes = blocks.numel() * blocks.element_size()
+    # what the index adds to make_operator("dist_bell"): the same build
+    # again, on the card
+    t0 = time.perf_counter()
+    bell_index(blocks, bcols, plan.B)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
     emit(phase="operators", plan_build_s=halo_op_s,
          dist_bell_operator_s=bell_op_s,
-         bell_conversion_s=bell_op_s - halo_op_s, k=plan.k, B=plan.B,
-         S=plan.S, n_rounds=plan.n_rounds, bell_shape=list(blocks.shape),
-         NNZB=int(blocks.shape[2]), bell_bytes=bell_bytes)
+         bell_conversion_s=bell_op_s - halo_op_s, bell_index_s=index_s,
+         k=plan.k, B=plan.B, S=plan.S, n_rounds=plan.n_rounds,
+         bell_shape=list(blocks.shape), NNZB=int(blocks.shape[2]),
+         bell_bytes=bell_bytes, index_nnz=index.nnz,
+         index_entries=len(index.cols),
+         index_bytes=len(index.cols) * 8 + index.ptr.numel() * 4)
 
     sols = {}
     for label, op in (("dist_halo", op_h), ("dist_bell", op_b)):
@@ -320,9 +283,11 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     emit(phase="main_path", launches=main_launches, agreement=agree,
          max_memory_allocated=peak)
     check(agree < 1e-5, f"dist_halo and dist_bell disagree: {agree}")
-    for kname in ("pdist", "spmv_bell"):
+    for kname in ("pdist", "spmv_bell:sell"):
         check(main_launches[kname] > 0,
               f"the main path never launched {kname}")
+    check(main_launches["spmv_bell_multi:sell"] == 0,
+          f"the main path took the batched block-ELL form: {main_launches}")
 
     # ---- 4b. geoKM repeats itself: one partition per seed ----------------
     t0 = time.perf_counter()
@@ -339,14 +304,27 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     xs = torch.randn(plan.k, plan.B, generator=gen, device=dev)
     xs = xs * plan.row_mask
     want = spmv_block_ell_ref(blocks, bcols, xs)
-    ok, err_bell = close(spmv_block_ell(blocks, bcols, xs), want, 1e-4,
+    got = spmv_block_ell(blocks, bcols, xs, index=index)
+    ok, err_bell = close(got, spmv_sell_ref(index, blocks, bcols, xs), 1e-4,
                          1e-4)
-    emit(check="spmv_bell_stacked", shape=list(blocks.shape),
-         max_abs_err=err_bell, tol=1e-4, ok=ok)
-    check(ok, f"stacked spmv_bell disagrees with its plain version: "
-              f"{err_bell}")
-    del want
-
+    ok_dense, err_dense = close(got, want, 1e-4, 1e-4)
+    emit(check="spmv_sell_stacked", shape=list(blocks.shape),
+         max_abs_err=err_bell, max_abs_err_dense_plain=err_dense, tol=1e-4,
+         ok=ok and ok_dense)
+    check(ok and ok_dense, f"stacked spmv_sell disagrees with its plain "
+                           f"version: {err_bell} / {err_dense}")
+    xinf = xs.clone()
+    xinf[0, 1000] = float("inf")                 # a real row of PU block 0
+    want = spmv_block_ell_ref(blocks, bcols, xinf)
+    got = spmv_block_ell(blocks, bcols, xinf, index=index)
+    same = (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(torch.isinf(got), torch.isinf(want)))
+    spread = int((~torch.isfinite(want)).sum())
+    emit(check="spmv_sell_stacked_non_finite", shape=list(blocks.shape),
+         non_finite=spread, same_pattern=same, ok=same and spread > 0)
+    check(same and spread > 0, "stacked spmv_sell: an Inf in x spreads "
+                               "unlike the dense product")
+    del want, got, xinf
     coords = torch.from_numpy(g.coords).to(dev)
     centers = coords[torch.randperm(g.n, generator=gen, device=dev)[:8]]
     n_pts, d = coords.shape
@@ -369,29 +347,41 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     del fill
 
     # the same function as one library call: the interior matrix of every
-    # PU block as one block-diagonal CSR tensor
+    # PU block as one block-diagonal CSR tensor.  With the (k, B) layout's
+    # padding rows (two thirds of its rows, empty) cuSPARSE's csrmv took
+    # 100x longer than on the same entries without them, whether the tensor
+    # was built on the card from COO or from host CSR arrays; the yardstick
+    # is the call without them, the others are kept beside it
     boff = torch.arange(plan.k, device=dev)[:, None] * plan.B
     live = plan.vals_int != 0
     r = (boff + plan.rows_int.long())[live]
     cidx = (boff + plan.cols_int.long())[live]
-    a_int = torch.sparse_coo_tensor(
+    vals = plan.vals_int[live].cpu().numpy()
+    a_coo = torch.sparse_coo_tensor(
         torch.stack([r, cidx]), plan.vals_int[live],
         (plan.k * plan.B, plan.k * plan.B)).coalesce().to_sparse_csr()
+    r, cidx = r.cpu().numpy(), cidx.cpu().numpy()
+    a_int = host_csr_tensor(sp.csr_matrix(
+        (vals, (r, cidx)), shape=(plan.k * plan.B,) * 2), dev)
+    real = plan.row_mask.reshape(-1) != 0
+    new_id = (torch.cumsum(real.long(), 0) - 1).cpu().numpy()
+    a_real = host_csr_tensor(sp.csr_matrix(
+        (vals, (new_id[r], new_id[cidx])), shape=(g.n, g.n)), dev)
     x_flat = xs.reshape(-1, 1)
-    bl_bytes = (bell_bytes + bcols.numel() * 4 + 2 * xs.numel() * 4)
-    bl_bound, bl_by = bound_ms(bl_bytes, 2 * blocks.numel())
+    x_real = x_flat[real]
+    library = {"without_padding_rows": lambda: a_real @ x_real,
+               "with_padding_rows": lambda: a_int @ x_flat,
+               "with_padding_rows_built_on_card_from_coo":
+                   lambda: a_coo @ x_flat}
+    times = bell_times(blocks, bcols, index, xs, library)
     rows.append(dict(
-        name="spmv_bell", route="cuda",
+        name="spmv_bell:sell", route="cuda",
         source="src/repro_torch/kernels/csrc/spmv_bell.cu",
         replaces="src/repro/kernels/spmv_bell.py:169",
-        launches=main_launches["spmv_bell"], max_abs_err=err_bell,
-        ms=event_ms(lambda: spmv_block_ell(blocks, bcols, xs)),
-        plain_ms=event_ms(lambda: spmv_block_ell_ref(blocks, bcols, xs)),
-        bound_ms=bl_bound, bound_by=bl_by,
-        library_ms=event_ms(lambda: a_int @ x_flat),
+        launches=main_launches["spmv_bell:sell"],
+        max_abs_err=max(err_bell, errs["spmv_sell"]), **times,
         shape=list(blocks.shape)))
-    del a_int
-
+    del a_int, a_coo, a_real, library, x_real, real, vals
     xop = op_h.scatter(b)
     for label, op in (("dist_halo", op_h), ("dist_bell", op_b)):
         mv_ms, it_ms = timed_cg(op, xop)
@@ -400,7 +390,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     emit(timing="memory", path="sparse", max_memory_allocated=peak)
 
     # dist_hier_bell builds its own block-ELL stack: free dist_bell's first
-    del op_b, op, plan, blocks, bcols, xs, x_flat, r, cidx, live, boff
+    del op_b, op, plan, blocks, bcols, index, xs, x_flat, live, boff
     torch.cuda.empty_cache()
     hier_bell = other_backends(g, A, (indptr, indices, data), topo, part, b,
                                op_h, sols["dist_halo"][0], emit)
@@ -411,10 +401,222 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     torch.cuda.empty_cache()
     block_jacobi_phase(args, emit)
     torch.cuda.empty_cache()
-    rows.append(service_phase(args, g, A, (indptr, indices, data), topo,
-                              part, b, sols["dist_halo"],
-                              errs["spmv_bell_multi"], emit))
+    multi_row, rows[1]["bell_1024_single"] = service_phase(
+        args, g, A, (indptr, indices, data), topo, part, b,
+        sols["dist_halo"], errs["spmv_sell"], emit)
+    rows.append(multi_row)
     return rows
+
+
+def bell_checks(args, dev, gen, emit, errs: dict) -> None:
+    """Phase 3's block-ELL part: the sell route in every form on the 256^2
+    Laplacian against its plain versions and scipy, and non-finite x
+    against the dense product.  The largest error of each check goes to
+    ``errs``."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ref import (spmv_block_ell_multi_ref,
+                                         spmv_block_ell_ref, spmv_sell_ref)
+    from repro_torch.kernels.spmv_bell import (bell_index, csr_to_block_ell,
+                                               nonfinite_pass, spmv_block_ell)
+    from repro_torch.sparse.generators import grid
+    from repro_torch.sparse.graph import laplacian_csr
+
+    g256 = grid((256, 256))
+    ip, ix, dat = laplacian_csr(g256, shift=1e-2)
+    A256 = sp.csr_matrix((dat, ix, ip), shape=(g256.n, g256.n))
+    x256 = np.random.default_rng(args.seed).normal(
+        size=g256.n).astype(np.float32)
+
+    def held(name, got, want, A_x=None, **kw):
+        """``got`` against the plain version's ``want`` (and scipy's
+        ``A_x``) within 1e-4."""
+        ok, err = close(got, want, 1e-4, 1e-4)
+        err_sp = None
+        if A_x is not None:
+            ok_sp, err_sp = close(got.cpu(), torch.from_numpy(A_x), 1e-4,
+                                  1e-4)
+            ok = ok and ok_sp
+        emit(check=name, grid=256, **kw, max_abs_err=err,
+             max_abs_err_scipy=err_sp, tol=1e-4, ok=ok)
+        check(ok, f"{name} {kw} disagrees: {err} (plain) / {err_sp} "
+                  f"(scipy)")
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    def same_pattern(name, got, want, **kw):
+        """An Inf and a NaN in x spread as in the dense product ``want``."""
+        fin = torch.isfinite(want)
+        same = (torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.isinf(got), torch.isinf(want)))
+        ok, err = close(got[fin], want[fin], 1e-4, 1e-4)
+        emit(check=name, grid=256, **kw,
+             non_finite_rows=int((~fin).reshape(fin.shape[0], -1)
+                                 .any(dim=1).sum()),
+             same_pattern=same, max_abs_err=err, ok=ok and same)
+        check(ok and same, f"{name} {kw}: an Inf/NaN in x spreads unlike "
+                           f"the dense product")
+
+    for bm, bk in ((8, 128), (16, 128), (8, 256), (16, 256)):
+        blocks, cols, _ = csr_to_block_ell(ip, ix, dat, g256.n, bm=bm,
+                                           bk=bk)
+        bt = torch.from_numpy(blocks).to(dev)
+        ct = torch.from_numpy(cols).to(dev)
+        xt = torch.from_numpy(x256).to(dev)
+        nnzb = int(cols.shape[1])
+        # without an index the wrapper builds one and launches the kernel
+        n0 = _build.launches()["spmv_bell:sell"]
+        held("spmv_sell", spmv_block_ell(bt, ct, xt),
+             spmv_block_ell_ref(bt, ct, xt), A256 @ x256,
+             form="single_without_index", bm=bm, bk=bk, nnzb=nnzb)
+        check(_build.launches()["spmv_bell:sell"] == n0 + 1,
+              "spmv_block_ell without an index did not launch spmv_sell")
+        for dt in (torch.float32, torch.float64):
+            bd = bt.to(dt)
+            index = bell_index(bd, ct, g256.n)
+            npdt = np.float32 if dt == torch.float32 else np.float64
+            xd = torch.from_numpy(x256).to(dev).to(dt)
+            held("spmv_sell", spmv_block_ell(bd, ct, xd, index=index),
+                 spmv_sell_ref(index, bd, ct, xd), A256 @ x256.astype(npdt),
+                 form="single", bm=bm, bk=bk, dtype=str(dt))
+            # the stacked form: three PU blocks, the last one empty
+            b3 = torch.stack([bd, -2 * bd, torch.zeros_like(bd)])
+            c3 = torch.stack([ct, ct, ct])
+            i3 = bell_index(b3, c3, g256.n)
+            x3 = torch.randn(3, g256.n, generator=gen, device=dev).to(dt)
+            want3 = spmv_block_ell_ref(b3, c3, x3)
+            got3 = spmv_block_ell(b3, c3, x3, index=i3)
+            held("spmv_sell", got3, spmv_sell_ref(i3, b3, c3, x3),
+                 form="stacked", bm=bm, bk=bk, dtype=str(dt))
+            held("spmv_sell", got3, want3, form="stacked_vs_dense_plain",
+                 bm=bm, bk=bk, dtype=str(dt))
+            # the batched form: nb = 33 takes the column-chunk loop
+            for nb in (1, 3, 16, 33):
+                xm = np.random.default_rng(args.seed + nb).normal(
+                    size=(g256.n, nb))
+                xd = torch.from_numpy(xm).to(dev).to(dt)
+                ax = A256 @ xm.astype(npdt)
+                got = spmv_block_ell(bd, ct, xd, index=index)
+                held("spmv_sell", got, spmv_sell_ref(index, bd, ct, xd), ax,
+                     form="batched", bm=bm, bk=bk, nb=nb, dtype=str(dt))
+                held("spmv_sell", got, spmv_block_ell_multi_ref(bd, ct, xd),
+                     form="batched_vs_dense_plain", bm=bm, bk=bk, nb=nb,
+                     dtype=str(dt))
+            # an Inf and a NaN in x spread as in the dense product (nb =
+            # 33 takes the flagged branch's column-chunk loop)
+            xd[5, 1], xd[700, 4] = float("inf"), float("nan")
+            for xb in (xd, xd[:, 1:2].contiguous()):
+                want = spmv_block_ell_multi_ref(bd, ct, xb)
+                kw = dict(bm=bm, bk=bk, nb=xb.shape[1], dtype=str(dt))
+                same_pattern("spmv_sell_non_finite", spmv_block_ell(
+                    bd, ct, xb, index=index), want, form="batched", **kw)
+            x1 = xd[:, 1].contiguous()
+            same_pattern("spmv_sell_non_finite", spmv_block_ell(
+                bd, ct, x1, index=index), spmv_block_ell_ref(bd, ct, x1),
+                form="single", bm=bm, bk=bk, dtype=str(dt))
+            x3[1, 5] = float("inf")
+            same_pattern("spmv_sell_non_finite", spmv_block_ell(
+                b3, c3, x3, index=i3), spmv_block_ell_ref(b3, c3, x3),
+                form="stacked", bm=bm, bk=bk, dtype=str(dt))
+    # the first pass alone: x at every offset from a 16-byte boundary, an
+    # Inf in its scalar head, its vector body or its scalar tail
+    wrong = []
+    for dt in (torch.float32, torch.float64):
+        for off in range(16 // torch.empty(0, dtype=dt).element_size()):
+            buf = torch.zeros(1037 + off, dtype=dt, device=dev)
+            x = buf[off:]
+            if int(nonfinite_pass(x)) != 0:
+                wrong.append((str(dt), off, None))
+            for pos in (0, 1, 2, 500, 1035, 1036):
+                x[pos] = float("inf")
+                if int(nonfinite_pass(x)) != 1:
+                    wrong.append((str(dt), off, pos))
+                x[pos] = 0
+    emit(check="nonfinite_pass", misses=wrong, ok=not wrong)
+    check(not wrong, f"the non-finite pass missed {wrong}")
+    torch.cuda.synchronize()
+
+
+def host_csr_tensor(a, dev):
+    """A scipy CSR matrix as a torch CSR tensor on ``dev`` (int64 indices,
+    its values' dtype), built from the host arrays."""
+    import numpy as np
+    import torch
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr.astype(np.int64)),
+        torch.from_numpy(a.indices.astype(np.int64)),
+        torch.from_numpy(a.data), size=a.shape,
+        check_invariants=False).to(dev)
+
+
+def graph_ms(fn, inner: int = 20) -> float:
+    """Device time per call of ``fn``: ``inner`` calls captured in one CUDA
+    graph, its replay timed by ``event_ms``.  The host's per-call work (the
+    wrapper's checks, allocation, the ctypes call) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    ms = event_ms(graph.replay) / inner
+    del graph
+    return ms
+
+
+def bell_times(blocks, cols, index, x, library: dict, old=None) -> dict:
+    """The sell route on one operand: its eager time per call, its device
+    time (a CUDA graph) and host time per call (50 calls enqueued back to
+    back, host clock), its non-finite pass alone, its plain version, each
+    ``library`` call (name -> callable; the first is the yardstick); the
+    bound on what the product needs (the nonzeros' values and int32
+    columns, x once, y once) and the block stream's (the floor of a kernel
+    that streams the blocks).  ``old``: another implementation of the same
+    product (an older tree's kernel), timed in turns with the sell route
+    (old, sell, sell, old)."""
+    import torch
+    from repro_torch.kernels.ref import spmv_sell_ref
+    from repro_torch.kernels.spmv_bell import nonfinite_pass, spmv_block_ell
+
+    def sell():
+        return spmv_block_ell(blocks, cols, x, index=index)
+
+    if old is None:
+        turns = {"sell": [event_ms(sell)]}
+    else:
+        t = [event_ms(f) for f in (old, sell, sell, old)]
+        turns = {"old": [t[0], t[3]], "sell": t[1:3]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        sell()
+    host_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    nb = x.shape[1] if blocks.dim() == 4 and x.dim() == 2 else 1
+    elt = blocks.element_size()
+    nz_bytes = index.nnz * (elt + 4) + 2 * x.numel() * elt
+    bound, by = bound_ms(nz_bytes, 2 * index.nnz * nb)
+    block_bytes = (blocks.numel() * elt + cols.numel() * 4
+                   + 2 * x.numel() * elt)
+    lib = {name: event_ms(call) for name, call in library.items()}
+    extra = {} if old is None else dict(
+        old_ms=statistics.median(turns["old"]), turns_ms=turns)
+    return dict(
+        ms=statistics.median(turns["sell"]), **extra,
+        graph_ms=graph_ms(sell), host_enqueue_ms=host_ms,
+        nonfinite_pass_ms=graph_ms(lambda: nonfinite_pass(x)),
+        plain_ms=event_ms(lambda: spmv_sell_ref(index, blocks, cols, x),
+                          reps=5),
+        bound_ms=bound, bound_by=by, bound_bytes=nz_bytes,
+        block_stream_bound_ms=bound_ms(block_bytes,
+                                       2 * blocks.numel() * nb)[0],
+        library_ms=next(iter(lib.values())), library_all_ms=lib,
+        nnz=index.nnz, index_entries=len(index.cols), nb=nb)
 
 
 def timed_cg(op, xop, n_it: int = 40) -> tuple[float, float]:
@@ -428,7 +630,7 @@ def timed_cg(op, xop, n_it: int = 40) -> tuple[float, float]:
 
 def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
     """Phase 5b: the exchange schedules the main path does not take, on
-    its system.  Returns dist_hier_bell's spmv_bell launches."""
+    its system.  Returns dist_hier_bell's spmv_bell:sell launches."""
     import numpy as np
     import torch
     from repro_torch.kernels import _build
@@ -477,10 +679,11 @@ def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
         check(agree < 1e-5, f"{label} and dist_halo disagree: {agree}")
         check(0 < iters < 2000, f"{label}: {iters} iterations")
         bell = backend.endswith("_bell")
-        check((launches["spmv_bell"] > 0) == bell,
-              f"{label} launched spmv_bell {launches['spmv_bell']} times")
+        check((launches["spmv_bell:sell"] > 0) == bell
+              and launches["spmv_bell_multi:sell"] == 0,
+              f"{label} launched {launches}")
         if bell:
-            hier_bell = launches["spmv_bell"]
+            hier_bell = launches["spmv_bell:sell"]
         del op, plan, res
         torch.cuda.empty_cache()
     return hier_bell
@@ -540,16 +743,18 @@ def block_jacobi_phase(args, emit) -> None:
         check(0 < iters < 2000, f"block-Jacobi {label}: {iters} iterations")
 
 
-def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
-                  emit) -> dict:
+def service_phase(args, g, A, csr, topo, part, b, halo_sol, sell_err,
+                  emit) -> tuple[dict, dict]:
     """Phase 5d: solver serving on phase 4's system.  Returns the
-    spmv_bell_multi row of the kernels line."""
+    spmv_bell_multi:sell row of the kernels line and spmv_bell:sell's
+    numbers on the 1024^2 blocks."""
     import numpy as np
     import scipy.sparse as sp
     import torch
     from repro_torch.core.replan_policy import DriftPolicy
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ref import spmv_block_ell_multi_ref
+    from repro_torch.kernels.ref import (spmv_block_ell_multi_ref,
+                                         spmv_block_ell_ref, spmv_sell_ref)
     from repro_torch.kernels.spmv_bell import spmv_block_ell
     from repro_torch.launch.serve import SolverService
     from repro_torch.sparse.cg import CHUNK
@@ -621,8 +826,7 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
             bb[:, 0] = b
         resp, launches = serve(svc, "dist_halo", mat, bb, A_mat)
         padded += resp.bucket - nb
-        check(launches["spmv_bell"] == 0
-              and launches["spmv_bell_multi"] == 0,
+        check(not any(launches[k] for k in BELL_COUNTS),
               f"the dist_halo service launched {launches}")
         if r == 0:
             x0, it0 = halo_sol
@@ -650,11 +854,13 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
         bb = rng.normal(size=(n, nb)).astype(np.float32)
         resp, launches = serve(svc, "bell", csr, bb, A)
         chunks = -(-int(svc.last["iters"].max()) // CHUNK)
-        check(launches["spmv_bell_multi"] == 1 + CHUNK * chunks
-              and launches["spmv_bell"] == 0,
+        check(launches["spmv_bell_multi:sell"] == 1 + CHUNK * chunks
+              and sum(launches[k] for k in BELL_COUNTS)
+              == launches["spmv_bell_multi:sell"],
               f"the bell service launched {launches}, want "
-              f"spmv_bell_multi once per matvec ({1 + CHUNK * chunks})")
-        multi_launches += launches["spmv_bell_multi"]
+              f"spmv_bell_multi:sell once per matvec "
+              f"({1 + CHUNK * chunks}) and no other block-ELL kernel")
+        multi_launches += launches["spmv_bell_multi:sell"]
         served.append((bb, resp))
     check(svc.stats.operator_misses == 1 and svc.stats.operator_hits == 1,
           f"bell service counters {svc.stats}")
@@ -676,49 +882,52 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
                             f"differ by {worst}")
         check(worst_it <= 2, f"bell batched and single-column iteration "
                              f"counts differ by {worst_it}")
-        check(single["spmv_bell"] > 0 and single["spmv_bell_multi"] == 0,
+        check(single["spmv_bell:sell"] > 0
+              and sum(single[k] for k in BELL_COUNTS)
+              == single["spmv_bell:sell"],
               f"the single-column solves launched {single}")
 
-    # spmv_bell_multi at the service's widths on the 1024^2 blocks
-    blocks, bcols = op.blocks, op.cols
-    a_csr = torch.sparse_csr_tensor(
-        torch.from_numpy(csr[0].astype(np.int64)),
-        torch.from_numpy(csr[1].astype(np.int64)),
-        torch.from_numpy(csr[2]), size=(n, n),
-        check_invariants=False).to(blocks.device)
+    # the sell route at the service's widths on the 1024^2 blocks
+    blocks, bcols, index = op.blocks, op.cols, op.index
+    a_csr = host_csr_tensor(A, blocks.device)
+    x1 = torch.randn(n, device=blocks.device)
+    got = spmv_block_ell(blocks, bcols, x1, index=index)
+    err1 = max(float((got - spmv_sell_ref(index, blocks, bcols, x1)).abs()
+                     .max()),
+               float((got - spmv_block_ell_ref(blocks, bcols, x1)).abs()
+                     .max()))
+    check(err1 < 1e-4, f"spmv_sell (n,) at 1024^2 disagrees with its plain "
+                       f"versions: {err1}")
+    single = dict(max_abs_err=err1, shape=list(blocks.shape), **bell_times(
+        blocks, bcols, index, x1, {"csr": lambda: a_csr @ x1[:, None]}))
     by_nb = []
     for nb in (1, 4, 16):
         xm = torch.randn(n, nb, device=blocks.device)
-        x1 = xm[:, 0].contiguous()
-        err = float((spmv_block_ell(blocks, bcols, xm)
-                     - spmv_block_ell_multi_ref(blocks, bcols, xm)).abs()
-                    .max())
-        nbytes = (blocks.numel() * blocks.element_size()
-                  + bcols.numel() * 4 + 2 * xm.numel() * 4)
-        bnd, by = bound_ms(nbytes, 2 * blocks.numel() * nb)
+        got = spmv_block_ell(blocks, bcols, xm, index=index)
+        want = spmv_block_ell_multi_ref(blocks, bcols, xm)
+        err = max(float((got - spmv_sell_ref(index, blocks, bcols, xm))
+                        .abs().max()), float((got - want).abs().max()))
+        check(err < 1e-4, f"spmv_sell nb={nb} at 1024^2 disagrees with its "
+                          f"plain versions: {err}")
         by_nb.append(dict(
-            nb=nb, max_abs_err=err,
-            ms=event_ms(lambda: spmv_block_ell(blocks, bcols, xm)),
-            bound_ms=bnd, bound_by=by,
-            plain_ms=event_ms(lambda: spmv_block_ell_multi_ref(
-                blocks, bcols, xm), reps=5),
-            library_ms=event_ms(lambda: a_csr @ xm),
+            max_abs_err=err, **bell_times(blocks, bcols, index, xm,
+                         {"csr": lambda: a_csr @ xm}),
             single_column_ms_times_nb=nb * event_ms(
-                lambda: spmv_block_ell(blocks, bcols, x1))))
-        check(err < 1e-4, f"spmv_bell_multi nb={nb} at 1024^2 disagrees "
-                          f"with its plain version: {err}")
+                lambda: spmv_block_ell(blocks, bcols, x1, index=index))))
+        del want, got
     top = by_nb[-1]
-    row = dict(name="spmv_bell_multi", route="cuda",
+    row = dict(name="spmv_bell_multi:sell", route="cuda",
                source="src/repro_torch/kernels/csrc/spmv_bell.cu",
                replaces="src/repro/kernels/spmv_bell.py:169",
                launches=multi_launches,
-               max_abs_err=max(multi_err, *(r["max_abs_err"]
-                                            for r in by_nb)),
-               ms=top["ms"], plain_ms=top["plain_ms"],
-               bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-               library_ms=top["library_ms"], nb=16,
-               shape=list(blocks.shape), by_nb=by_nb)
-    del svc, op, served, blocks, bcols, a_csr, xm, x1
+               max_abs_err=max(sell_err, *(r["max_abs_err"]
+                                           for r in by_nb)),
+               **{k: top[k] for k in (
+                   "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "block_stream_bound_ms", "graph_ms",
+                   "nonfinite_pass_ms")},
+               nb=16, shape=list(blocks.shape), by_nb=by_nb)
+    del svc, op, served, blocks, bcols, index, a_csr, xm, x1
     torch.cuda.empty_cache()
 
     # ---- dist_hier service: a patch, then a drift trip -------------------
@@ -774,7 +983,7 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, multi_err,
           f"dist_hier service counters {s}")
     del svc, r0, r1, r2, hit
     torch.cuda.empty_cache()
-    return row
+    return row, single
 
 
 def lm_path(args, dev, gen, emit) -> list[dict]:

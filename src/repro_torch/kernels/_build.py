@@ -36,26 +36,26 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _LP = ctypes.POINTER(ctypes.c_longlong)
 _FLASH = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _LP, _I, _P)
+_SELL = (_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I,
+         _P)
 # library -> launcher name -> argtypes; every launcher returns a
 # cudaError_t as int
 SIGNATURES = {
     "pdist": {"pdist_f32": (_P, _P, _P, _L, _I, _I, _P),
               "pdist_bf16": (_P, _P, _P, _L, _I, _I, _P)},
     "spmv_bell": {
-        "spmv_bell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
-        "spmv_bell_f64": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _L, _P),
-        "spmv_bell_multi_f32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
-                                _P),
-        "spmv_bell_multi_f64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _I,
-                                _P)},
+        "spmv_sell_f32": _SELL, "spmv_sell_f64": _SELL,
+        "bell_nonfinite": (_P, _L, _I, _P, _P)},
     "flash": {"flash_attn_f32": _FLASH, "flash_attn_bf16": _FLASH},
     "flash_sm90": {"flash_sm90_bf16": _FLASH},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# one count per kernel: a library may hold several (spmv_bell.cu holds
-# spmv_bell and spmv_bell_multi)
-KERNELS = ("pdist", "spmv_bell", "spmv_bell_multi", "flash", "flash_sm90")
+# one count per kernel and form: spmv_bell.cu's sliced-ELL kernel counts as
+# spmv_bell:sell for an (n,) or (K, n) operand and as spmv_bell_multi:sell
+# for an (n, nb) batch
+KERNELS = ("pdist", "spmv_bell:sell", "spmv_bell_multi:sell", "flash",
+           "flash_sm90")
 _LAUNCHES = {name: 0 for name in KERNELS}
 
 

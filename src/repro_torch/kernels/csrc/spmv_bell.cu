@@ -1,272 +1,300 @@
-// Block-ELL SpMV for Hopper (sm_90a), stacked over PU blocks:
+// Block-ELL SpMV for Hopper (sm_90a), over the blocks' nonzero entries:
 //
 //   y[k, s*BM + m] = sum_b sum_t blocks[k, s, b, m, t] * x[k, cols[k, s, b]*BK + t]
 //
-// with x read as zero past its length n (the TPU kernel's zero-padded panels).
+// with x read as zero past its length n (the TPU kernel's zero-padded
+// panels), for one vector, one per PU block of a stacked plan (K of them),
+// or an (n, nb) batch, X row-major (the batched CG keeps the batch axis
+// last).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/spmv_bell.py
-// (_spmv_block_ell).  The TPU version walks a sequential (S, NNZB) grid and
-// carries the stripe sum in the output block across the NNZB axis; blocks on
-// Hopper run in no order, so the NNZB walk becomes a loop inside one CTA.
-// One CTA per (PU block k, stripe s) -- k is the outer grid axis (blockIdx.y)
-// so one launch covers the whole stacked (K, S, NNZB, BM, BK) form of a
-// distributed plan; the single-device operator is the K = 1 case.  Warp m of
-// the CTA owns row m of the stripe: each lane reads BK/32 entries of the
-// block row and of the x panel (both coalesced), keeps a running partial in
-// the blocks' dtype, and one shuffle reduction per row ends the stripe.
+// (_spmv_block_ell), also under the reference's jax.vmap over columns
+// (sparse/cg.py).  The TPU version walks a sequential (S, NNZB) grid and
+// streams every (BM, BK) block.  The bm 8 x bk 128 blocks of a 5-point
+// Laplacian are 99% zeros (2.15 GB of blocks for 42 MB of values and int32
+// columns at the 1024^2 grid), so a kernel that streams the blocks sits
+// far above what the product needs: 0.7-3 ms on an H100 at the port's
+// shapes, where the nonzeros take 0.02-0.05 ms at the HBM rate.
 //
-// Bound: bytes.  Every block entry is read once and used for one FMA, so
-// the kernel streams the (K, S, NNZB, BM, BK) array from DRAM at 2 flops per
-// element -- far below the card's flop/byte ratio.  The x panel is re-read by
-// the BM warps of a CTA, which L1 serves.
+// spmv_sell: the operators build, once, a list of the blocks' nonzero
+// entries (spmv_bell.py::bell_index) in sliced ELL: rows in slices of 32,
+// each slice padded to its longest row, entry j of the slice's row i at
+// ptr[slice] + 32 j + i (one int32 column within the row's PU block, -1 on
+// padding, and the block's value bit for bit).  A team of L lanes takes one
+// row and a chunk of C columns of the batch, W = C / L of them each (one
+// thread per row up to 16 bytes of the X row: nb <= 2 in f32, 1 in f64;
+// float4 / double2 slices above); wider batches loop over chunks.  A warp
+// reads its slice's entries with coalesced streaming loads (evict first,
+// so X keeps L2), U = 8 entries of a row in flight before its first X
+// read, X through the read-only path (the +-1 / +-side neighbours of a grid
+// row hit L1 / L2), and writes its Y rows once, coalesced.  Bound: bytes,
+// the nonzeros' value and column, X once and Y once (2 flops per 8-12 bytes
+// and column; no tensor cores: the products are gathers of X rows, which
+// TMA cannot do on Hopper, at far below the card's flop/byte ratio).
 //
-// spmv_bell_multi: the same product for an RHS batch, Y = A @ X with X
-// (n, nb) row-major (the batched CG keeps the batch axis last) -- the TPU
-// kernel under the reference's jax.vmap over columns (sparse/cg.py), which
-// streams every block once per column.  Here a CTA reads each (BM, BK)
-// block once for all nb columns: one CTA per stripe, warp m on stripe row
-// m, and C accumulators per lane (one per column of a chunk of C <= 16
-// columns, C the power of two at or above nb).  For each block a lane
-// issues the loads of its U = 4 entries of the block row (BK / 32 of them
-// at BK 128) before it uses any, then reads the X row of each entry that
-// is not zero: C contiguous values (16-byte loads where nb is a multiple
-// of C and the row is aligned).  (Issuing all NNZB * BK / 32 entries of
-// the row at once measured slower: more registers, fewer CTAs per SM.)
-// The reference's layout is mostly zeros (1% of the bm 8 x bk 128 blocks of
-// a 5-point Laplacian); the first version of this kernel read the X row
-// of every entry, and those reads, 8 warps to a panel through L1, took 7x
-// the block stream's time at nb = 16.  A zero entry still has to give
-// 0 * Inf = NaN where X holds an Inf or NaN, as the dense product does:
-// a first pass over X (its bytes once, a few percent of the blocks') sets
-// a flag when any value is not finite, and a flagged launch reads the X
-// row of every entry.  One xor-shuffle reduction per column leaves every
-// sum in every lane, and lane j stores column j, so the Y row is one
-// coalesced store.  Wider batches (the reference's exact-width oversize
-// class) loop over column chunks, re-reading the stripe's blocks.  A
-// single column (nb = 1, the service's first size class) is the
-// single-column kernel's case: X (n, 1) is its x, and it runs it (its one
-// accumulator per lane and dense reads measured faster there).  Bound:
-// bytes, the block array once (at most 2 flops per element and column,
-// below the card's flop/byte ratio up to nb = 16).
+// A zero block entry under an Inf or NaN of X still has to give NaN, as
+// the dense product does: a first pass over X (any_nonfinite_kernel) sets
+// a device flag when any value is not finite, and a flagged launch computes
+// every row as the dense product over its stripe's NNZB blocks (exact, and
+// slow).  The flag is read on the device; the host never waits for it.
 //
 // Plain C interface: launched on the caller's stream, returns the
 // cudaGetLastError() code of the launch.
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-template <typename T>
-__global__ void spmv_bell_kernel(const T* __restrict__ blocks,
-                                 const int* __restrict__ cols,
-                                 const T* __restrict__ x, T* __restrict__ y,
-                                 int S, int nnzb, int bm, int bk,
-                                 long long n) {
-  const int s = blockIdx.x;
-  const long long kk = blockIdx.y;
-  const int m = threadIdx.y;
-  const int lane = threadIdx.x;
-  const long long stripe = kk * S + s;
-  const T* xk = x + kk * n;
-  const int* ck = cols + stripe * nnzb;
-  const T* a = blocks + stripe * (long long)nnzb * bm * bk + (long long)m * bk;
-  T acc = T(0);
-  for (int b = 0; b < nnzb; ++b) {
-    const long long base = (long long)ck[b] * bk;
-    const T* ab = a + (long long)b * bm * bk;
-    for (int t = lane; t < bk; t += 32) {
-      const long long col = base + t;
-      const T xv = col < n ? xk[col] : T(0);
-      acc += ab[t] * xv;
-    }
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  const long long row = (long long)s * bm + m;
-  if (lane == 0 && row < n) y[kk * n + row] = acc;
-}
-
-template <typename T>
-int launch(const void* blocks, const void* cols, const void* x, void* y,
-           int K, int S, int nnzb, int bm, int bk, long long n, void* stream) {
-  if (K == 0 || S == 0) return 0;
-  const dim3 grid((unsigned)S, (unsigned)K);
-  const dim3 block(32, (unsigned)bm);
-  spmv_bell_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)blocks, (const int*)cols, (const T*)x, (T*)y, S, nnzb, bm, bk,
-      n);
-  return (int)cudaGetLastError();
-}
-
-// C values of one X row from xr; columns at or past cn read as zero.
-template <typename T, int C, bool VEC>
-__device__ __forceinline__ void load_row(const T* __restrict__ xr, int cn,
-                                         T (&xv)[C]) {
-  if constexpr (VEC) {                 // cn == C, xr 16-byte aligned
-    if constexpr (sizeof(T) == 4) {
-#pragma unroll
-      for (int j = 0; j < C; j += 4) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(xr + j));
-        xv[j] = v.x;
-        xv[j + 1] = v.y;
-        xv[j + 2] = v.z;
-        xv[j + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < C; j += 2) {
-        const double2 v = __ldg(reinterpret_cast<const double2*>(xr + j));
-        xv[j] = v.x;
-        xv[j + 1] = v.y;
-      }
-    }
+// W values of a row from p: the sell route's X reads and Y writes.  VEC:
+// all W present and p aligned to W * sizeof(T); else columns at or past cn
+// read as zero (and are not written).
+template <typename T, int W, bool VEC>
+__device__ __forceinline__ void load_vals(const T* __restrict__ p, int cn,
+                                          T (&v)[W]) {
+  if constexpr (VEC && W * sizeof(T) == 16 && sizeof(T) == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (VEC && W * sizeof(T) == 16) {
+    const double2 q = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
+  } else if constexpr (VEC && W == 2 && sizeof(T) == 4) {
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = q.x;
+    v[1] = q.y;
   } else {
 #pragma unroll
-    for (int j = 0; j < C; ++j) xv[j] = j < cn ? __ldg(xr + j) : T(0);
+    for (int i = 0; i < W; ++i) v[i] = (VEC || i < cn) ? __ldg(p + i) : T(0);
   }
 }
 
-// Sets *flag when any of the len values of x is not finite.
+template <typename T, int W, bool VEC>
+__device__ __forceinline__ void store_vals(T* __restrict__ p, int cn,
+                                           const T (&v)[W]) {
+  if constexpr (VEC && W * sizeof(T) == 16 && sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC && W * sizeof(T) == 16) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else if constexpr (VEC && W == 2 && sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      if (VEC || i < cn) p[i] = v[i];
+  }
+}
+
+// One team of L = C / W lanes per row r of the rows = K * n rows (PU block
+// k = r / n); lane l owns columns c0 + l W .. c0 + l W + W - 1 of each
+// chunk of C columns.
+template <typename T, int C, bool VEC>
+__global__ void spmv_sell_kernel(
+    const int* __restrict__ ptr, const int* __restrict__ icol,
+    const T* __restrict__ ival, const T* __restrict__ blocks,
+    const int* __restrict__ bcols, const T* __restrict__ x, T* __restrict__ y,
+    const int* __restrict__ nonfinite, long long rows, long long n, int nb,
+    int S, int nnzb, int bm, int bk) {
+  constexpr int W = (C * sizeof(T) < 16) ? C : (int)(16 / sizeof(T));
+  constexpr int L = C / W;
+  constexpr int U = 8;                 // entries of a row in flight
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long r = t / L;
+  if (r >= rows) return;
+  const int cl = (int)(t % L) * W;
+  const long long k = r / n;
+  const T* xk = x + k * n * nb;
+  T* yr = y + r * nb;
+  if (*nonfinite) {                    // the dense product over the stripe
+    const long long i = r - k * n;
+    const long long stripe = k * S + i / bm;
+    const int* cs = bcols + stripe * nnzb;
+    const T* a = blocks + (stripe * nnzb * bm + i % bm) * (long long)bk;
+    for (int c = cl; c < nb; c += C) {
+      const int cn = min(W, nb - c);
+      T acc[W];
+#pragma unroll
+      for (int q = 0; q < W; ++q) acc[q] = T(0);
+      for (int b = 0; b < nnzb; ++b) {
+        const long long base = (long long)cs[b] * bk;
+        const T* ab = a + (long long)b * bm * bk;
+        for (int e = 0; e < bk; ++e) {
+          const T av = ab[e];
+          T xv[W];
+          if (base + e < n) {
+            load_vals<T, W, VEC>(xk + (base + e) * nb + c, cn, xv);
+          } else {
+#pragma unroll
+            for (int q = 0; q < W; ++q) xv[q] = T(0);   // zero past n
+          }
+#pragma unroll
+          for (int q = 0; q < W; ++q) acc[q] += av * xv[q];
+        }
+      }
+      store_vals<T, W, VEC>(yr + c, cn, acc);
+    }
+    return;
+  }
+  const long long sl = r >> 5;
+  const int beg = ptr[sl];
+  const int w = (ptr[sl + 1] - beg) >> 5;
+  const int* ic = icol + beg + (int)(r & 31);
+  const T* iv = ival + beg + (int)(r & 31);
+  for (int c = cl; c < nb; c += C) {
+    const int cn = min(W, nb - c);
+    T acc[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) acc[q] = T(0);
+    for (int j0 = 0; j0 < w; j0 += U) {
+      int cc[U];
+      T vv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u;
+        cc[u] = j < w ? __ldcs(ic + 32 * j) : -1;
+        vv[u] = j < w ? __ldcs(iv + 32 * j) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (cc[u] >= 0) {              // -1: the slice's padding
+          T xv[W];
+          load_vals<T, W, VEC>(xk + (long long)cc[u] * nb + c, cn, xv);
+#pragma unroll
+          for (int q = 0; q < W; ++q) acc[q] += vv[u] * xv[q];
+        }
+      }
+    }
+    store_vals<T, W, VEC>(yr + c, cn, acc);
+  }
+}
+
+__device__ __forceinline__ bool finite16(float4 v) {
+  return isfinite(v.x) && isfinite(v.y) && isfinite(v.z) && isfinite(v.w);
+}
+__device__ __forceinline__ bool finite16(double2 v) {
+  return isfinite(v.x) && isfinite(v.y);
+}
+
+// Sets *flag when any of the len values of x is not finite: the sell
+// route's first pass.  16-byte loads over the aligned body, with a scalar
+// head and tail, so any x of the blocks' dtype will do; the body is walked
+// from its end to its start, so that what stays in L2 afterwards is the
+// head of x, which the product reads first (an X of 64 MB, nb = 16 at the
+// 1024^2 grid, does not fit in L2).
 template <typename T>
 __global__ void any_nonfinite_kernel(const T* __restrict__ x, long long len,
                                      int* __restrict__ flag) {
+  using V = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+  constexpr int E = 16 / sizeof(T);
+  const long long to16 = (long long)((16 - (uintptr_t)x % 16) % 16) / sizeof(T);
+  const long long head = to16 < len ? to16 : len;
+  const long long nv = (len - head) / E;
+  const V* xv = reinterpret_cast<const V*>(x + head);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   bool bad = false;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < len; i += (long long)gridDim.x * blockDim.x)
+  for (long long i = first; i < nv; i += stride)
+    bad |= !finite16(xv[nv - 1 - i]);
+  for (long long i = first; i < head; i += stride) bad |= !isfinite(x[i]);
+  for (long long i = head + nv * E + first; i < len; i += stride)
     bad |= !isfinite(x[i]);
   if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
 }
 
-template <typename T, int C, bool VEC>
-__global__ void spmv_bell_multi_kernel(const T* __restrict__ blocks,
-                                       const int* __restrict__ cols,
-                                       const T* __restrict__ x,
-                                       T* __restrict__ y,
-                                       const int* __restrict__ nonfinite,
-                                       int nnzb, int bm, int bk, long long n,
-                                       int nb) {
-  const bool dense = *nonfinite != 0;  // X holds an Inf or NaN
-  const int s = blockIdx.x;
-  const int m = threadIdx.y;
-  const int lane = threadIdx.x;
-  const int* cs = cols + (long long)s * nnzb;
-  const T* a = blocks + (long long)s * nnzb * bm * bk + (long long)m * bk;
-  const long long row = (long long)s * bm + m;
-  constexpr int U = 4;                 // block entries in flight per lane
-  for (int c0 = 0; c0 < nb; c0 += C) {
-    const int cn = min(C, nb - c0);
-    T acc[C];
-#pragma unroll
-    for (int j = 0; j < C; ++j) acc[j] = T(0);
-    for (int b = 0; b < nnzb; ++b) {
-      const long long base = (long long)cs[b] * bk;
-      const T* ab = a + (long long)b * bm * bk;
-      for (int t0 = lane; t0 < bk; t0 += 32 * U) {
-        T av[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int t = t0 + 32 * u;
-          av[u] = t < bk ? ab[t] : T(0);
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const long long col = base + t0 + 32 * u;
-          if ((dense || av[u] != T(0)) && col < n) {  // zero past n
-            T xv[C];
-            load_row<T, C, VEC>(x + col * nb + c0, cn, xv);
-#pragma unroll
-            for (int j = 0; j < C; ++j) acc[j] += av[u] * xv[j];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      for (int off = 16; off > 0; off >>= 1)
-        acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
-    T mine = T(0);
-#pragma unroll
-    for (int j = 0; j < C; ++j)
-      if (lane == j) mine = acc[j];
-    if (row < n && lane < cn) y[row * nb + c0 + lane] = mine;
-  }
-}
-
-template <typename T, int C>
-int launch_multi_c(const void* blocks, const void* cols, const void* x,
-                   void* y, const int* flag, int S, int nnzb, int bm, int bk,
-                   long long n, int nb, cudaStream_t st) {
-  const dim3 grid((unsigned)S);
-  const dim3 block(32, (unsigned)bm);
-  const bool vec = nb % C == 0 && (uintptr_t)x % 16 == 0;
-  if constexpr ((C * sizeof(T)) % 16 == 0) {
-    if (vec) {
-      spmv_bell_multi_kernel<T, C, true><<<grid, block, 0, st>>>(
-          (const T*)blocks, (const int*)cols, (const T*)x, (T*)y, flag, nnzb,
-          bm, bk, n, nb);
-      return (int)cudaGetLastError();
-    }
-  }
-  spmv_bell_multi_kernel<T, C, false><<<grid, block, 0, st>>>(
-      (const T*)blocks, (const int*)cols, (const T*)x, (T*)y, flag, nnzb, bm,
-      bk, n, nb);
+// flag := 1 if any of the len values of x is not finite, else 0.
+template <typename T>
+int nonfinite_pass(const void* x, long long len, void* flag,
+                   cudaStream_t st) {
+  if (const cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int), st))
+    return (int)e;
+  const long long want = (len + 256 * 4 - 1) / (256 * 4);
+  const unsigned grid = (unsigned)(want < 1024 ? (want > 0 ? want : 1) : 1024);
+  any_nonfinite_kernel<T><<<grid, 256, 0, st>>>((const T*)x, len, (int*)flag);
   return (int)cudaGetLastError();
 }
 
-// flag: one int of device scratch for the non-finite pass.
+template <typename T, int C>
+int launch_sell_c(const void* ptr, const void* icol, const void* ival,
+                  const void* blocks, const void* bcols, const void* x,
+                  void* y, const int* flag, long long rows, long long n,
+                  int nb, int S, int nnzb, int bm, int bk, cudaStream_t st) {
+  constexpr int W = (C * sizeof(T) < 16) ? C : (int)(16 / sizeof(T));
+  constexpr int L = C / W;
+  constexpr int threads = 256;
+  const long long grid = (rows * L + threads - 1) / threads;
+  const uintptr_t align = W * sizeof(T);
+  const bool vec = nb % W == 0 && (uintptr_t)x % align == 0 &&
+                   (uintptr_t)y % align == 0;
+  if (vec) {
+    spmv_sell_kernel<T, C, true><<<(unsigned)grid, threads, 0, st>>>(
+        (const int*)ptr, (const int*)icol, (const T*)ival, (const T*)blocks,
+        (const int*)bcols, (const T*)x, (T*)y, flag, rows, n, nb, S, nnzb, bm,
+        bk);
+  } else {
+    spmv_sell_kernel<T, C, false><<<(unsigned)grid, threads, 0, st>>>(
+        (const int*)ptr, (const int*)icol, (const T*)ival, (const T*)blocks,
+        (const int*)bcols, (const T*)x, (T*)y, flag, rows, n, nb, S, nnzb, bm,
+        bk);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows = K * n; x and y are (rows, nb) row-major; flag: one int of device
+// scratch for the non-finite pass.
 template <typename T>
-int launch_multi(const void* blocks, const void* cols, const void* x,
-                 void* y, void* flag, int S, int nnzb, int bm, int bk,
-                 long long n, int nb, void* stream) {
-  if (S == 0 || nb == 0) return 0;
-  if (nb == 1)
-    return launch<T>(blocks, cols, x, y, 1, S, nnzb, bm, bk, n, stream);
+int launch_sell(const void* ptr, const void* icol, const void* ival,
+                const void* blocks, const void* bcols, const void* x, void* y,
+                void* flag, long long rows, long long n, int nb, int S,
+                int nnzb, int bm, int bk, void* stream) {
+  if (rows == 0 || nb == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (const cudaError_t e = cudaMemsetAsync(flag, 0, sizeof(int), st))
-    return (int)e;
-  any_nonfinite_kernel<T><<<1024, 256, 0, st>>>((const T*)x, n * nb,
-                                                 (int*)flag);
+  if (const int e = nonfinite_pass<T>(x, rows * nb, flag, st)) return e;
   const int* f = (const int*)flag;
-  if (nb <= 2)
-    return launch_multi_c<T, 2>(blocks, cols, x, y, f, S, nnzb, bm, bk, n,
-                                nb, st);
+  if (nb == 1)
+    return launch_sell_c<T, 1>(ptr, icol, ival, blocks, bcols, x, y, f, rows,
+                               n, nb, S, nnzb, bm, bk, st);
+  if (nb == 2)
+    return launch_sell_c<T, 2>(ptr, icol, ival, blocks, bcols, x, y, f, rows,
+                               n, nb, S, nnzb, bm, bk, st);
   if (nb <= 4)
-    return launch_multi_c<T, 4>(blocks, cols, x, y, f, S, nnzb, bm, bk, n,
-                                nb, st);
+    return launch_sell_c<T, 4>(ptr, icol, ival, blocks, bcols, x, y, f, rows,
+                               n, nb, S, nnzb, bm, bk, st);
   if (nb <= 8)
-    return launch_multi_c<T, 8>(blocks, cols, x, y, f, S, nnzb, bm, bk, n,
-                                nb, st);
-  return launch_multi_c<T, 16>(blocks, cols, x, y, f, S, nnzb, bm, bk, n,
-                               nb, st);
+    return launch_sell_c<T, 8>(ptr, icol, ival, blocks, bcols, x, y, f, rows,
+                               n, nb, S, nnzb, bm, bk, st);
+  return launch_sell_c<T, 16>(ptr, icol, ival, blocks, bcols, x, y, f, rows,
+                              n, nb, S, nnzb, bm, bk, st);
 }
 
 }  // namespace
 
-extern "C" int spmv_bell_f32(const void* blocks, const void* cols,
-                             const void* x, void* y, int K, int S, int nnzb,
-                             int bm, int bk, long long n, void* stream) {
-  return launch<float>(blocks, cols, x, y, K, S, nnzb, bm, bk, n, stream);
+extern "C" int spmv_sell_f32(const void* ptr, const void* icol,
+                             const void* ival, const void* blocks,
+                             const void* bcols, const void* x, void* y,
+                             void* flag, long long rows, long long n, int nb,
+                             int S, int nnzb, int bm, int bk, void* stream) {
+  return launch_sell<float>(ptr, icol, ival, blocks, bcols, x, y, flag, rows,
+                            n, nb, S, nnzb, bm, bk, stream);
 }
 
-extern "C" int spmv_bell_f64(const void* blocks, const void* cols,
-                             const void* x, void* y, int K, int S, int nnzb,
-                             int bm, int bk, long long n, void* stream) {
-  return launch<double>(blocks, cols, x, y, K, S, nnzb, bm, bk, n, stream);
+extern "C" int spmv_sell_f64(const void* ptr, const void* icol,
+                             const void* ival, const void* blocks,
+                             const void* bcols, const void* x, void* y,
+                             void* flag, long long rows, long long n, int nb,
+                             int S, int nnzb, int bm, int bk, void* stream) {
+  return launch_sell<double>(ptr, icol, ival, blocks, bcols, x, y, flag, rows,
+                             n, nb, S, nnzb, bm, bk, stream);
 }
 
-extern "C" int spmv_bell_multi_f32(const void* blocks, const void* cols,
-                                   const void* x, void* y, void* flag, int S,
-                                   int nnzb, int bm, int bk, long long n,
-                                   int nb, void* stream) {
-  return launch_multi<float>(blocks, cols, x, y, flag, S, nnzb, bm, bk, n,
-                             nb, stream);
-}
-
-extern "C" int spmv_bell_multi_f64(const void* blocks, const void* cols,
-                                   const void* x, void* y, void* flag, int S,
-                                   int nnzb, int bm, int bk, long long n,
-                                   int nb, void* stream) {
-  return launch_multi<double>(blocks, cols, x, y, flag, S, nnzb, bm, bk, n,
-                              nb, stream);
+// The sell route's first pass alone, for timing it apart: x holds len
+// float64 values if f64 is not 0, else float32 ones.
+extern "C" int bell_nonfinite(const void* x, long long len, int f64,
+                              void* flag, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  return f64 ? nonfinite_pass<double>(x, len, flag, st)
+             : nonfinite_pass<float>(x, len, flag, st);
 }

@@ -63,6 +63,36 @@ def spmv_block_ell_multi_ref(blocks: torch.Tensor, cols: torch.Tensor,
     return y.reshape(S * BM, nb)[:n].contiguous()
 
 
+def spmv_sell_ref(index, blocks: torch.Tensor, cols: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """The sell route's plain version: y = A @ x as a gather and a sum
+    over ``index`` (:func:`.spmv_bell.bell_index` of ``blocks``, ``cols``:
+    slices of 32 rows, entry j of a slice's row i at ``ptr + 32 j + i``),
+    in the blocks' dtype, in any of the three forms of
+    :func:`.spmv_bell.spmv_block_ell`.  An Inf or NaN in x takes the dense
+    plain version, so a zero block entry under it gives NaN as the dense
+    product does."""
+    if not bool(torch.isfinite(x).all()):
+        if blocks.dim() == 4 and x.dim() == 2:
+            return spmv_block_ell_multi_ref(blocks, cols, x)
+        return spmv_block_ell_ref(blocks, cols, x)
+    n, rows = index.n, index.k * index.n
+    dev = index.vals.device
+    xf = x.to(index.vals.dtype).reshape(rows, -1)
+    ptr = index.ptr.long()
+    width = (ptr[1:] - ptr[:-1]) // 32
+    sl = torch.repeat_interleave(torch.arange(len(width), device=dev),
+                                 width * 32)
+    off = torch.arange(len(sl), device=dev) - ptr[sl]
+    row = sl * 32 + off % 32
+    live = index.cols >= 0
+    row = row[live]
+    col = index.cols[live].long() + row // n * n
+    y = torch.zeros((rows, xf.shape[1]), dtype=xf.dtype, device=dev)
+    y.index_add_(0, row, index.vals[live, None] * xf[col])
+    return y.reshape(x.shape)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True,
                         scale: float | None = None) -> torch.Tensor:

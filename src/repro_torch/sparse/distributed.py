@@ -37,8 +37,9 @@ that level.  The schedules (``comm``):
                     the same.
 
 The interior matvec of ``halo`` / ``hier`` is an ``index_add_`` over padded
-COO (``local_format='coo'``) or the block-ELL CUDA kernel over the stacked
-``(k, S_b, NNZB, bm, bk)`` form (``'bell'``, single-RHS as in the
+COO (``local_format='coo'``) or the block-ELL SpMV over the stacked
+``(k, S_b, NNZB, bm, bk)`` form (``'bell'``: the sell route over the
+blocks' nonzero entries, :meth:`DistPlan.bell_index`; single-RHS as in the
 reference: it raises ``ValueError`` on a batched operand).  The
 reference's ``psum`` dot becomes a ``row_mask``-weighted sum over the
 whole ``(k, B)`` tensor, per column for a batch.  The
@@ -58,7 +59,8 @@ import torch
 from ..core.refinement import vizing_edge_coloring
 from ..core.topology import normalize_pod_of, normalize_tree_of
 from ..device import resolve_device
-from ..kernels.spmv_bell import padded_coo_to_block_ell, spmv_block_ell
+from ..kernels.spmv_bell import (BellIndex, bell_index,
+                                 padded_coo_to_block_ell, spmv_block_ell)
 from .cg import cg_solve, jacobi_preconditioner
 
 # plan fields that live on the device, with the reference's dtypes
@@ -185,6 +187,17 @@ class DistPlan:
         cached = (torch.from_numpy(blocks).to(self.device),
                   torch.from_numpy(cols).to(self.device))
         self._bell[key] = cached
+        return cached
+
+    def bell_index(self, bm: int = 8, bk: int = 128) -> BellIndex:
+        """The sell route's index of :meth:`bell_local`'s blocks (their
+        nonzero entries), built on the plan's device and cached with them,
+        so a patched plan (``_bell={}``) rebuilds it too."""
+        key = ("index", bm, bk)
+        cached = self._bell.get(key)
+        if cached is None:
+            blocks, cols = self.bell_local(bm, bk)
+            cached = self._bell[key] = bell_index(blocks, cols, self.B)
         return cached
 
     def block_jacobi_inv(self) -> torch.Tensor:
@@ -1308,6 +1321,7 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
                 return _accumulate(zeros(x), inner, x)
         else:
             blocks, bcols = plan.bell_local()
+            index = plan.bell_index()
 
             def interior(x):
                 if x.dim() > 2:
@@ -1316,7 +1330,8 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
                         "interior of the distributed schedules is a vector "
                         "kernel, as in the reference); use "
                         "local_format='coo' for batched solves")
-                return spmv_block_ell(blocks, bcols, x).reshape(-1)
+                return spmv_block_ell(blocks, bcols, x,
+                                      index=index).reshape(-1)
 
         def fn(x):
             y = interior(x)                      # no halo dependence

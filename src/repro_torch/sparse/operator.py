@@ -2,7 +2,8 @@
 port of ``src/repro/sparse/operator.py``, all eight of its backends):
 
   * ``coo``            — single-device padded-COO ``index_add_`` (spmv.py);
-  * ``bell``           — the block-ELL CUDA kernel (kernels/spmv_bell.py);
+  * ``bell``           — the block-ELL SpMV (kernels/spmv_bell.py, the
+                         sell route over the blocks' nonzeros);
   * ``dist_halo``      — the stacked distributed runtime: interior rows,
                          halo rounds, boundary rows, padded-COO interior;
   * ``dist_halo_seq``  — every halo round, then one matvec over all rows;
@@ -37,7 +38,8 @@ import numpy as np
 import torch
 
 from ..device import as_float, resolve_device, to_device
-from ..kernels.spmv_bell import csr_to_block_ell, spmv_block_ell
+from ..kernels.spmv_bell import (BellIndex, bell_index,
+                                 csr_to_block_ell, spmv_block_ell)
 from .cg import CGResult, cg_solve, vdot
 from .distributed import (DistPlan, block_jacobi_preconditioner,
                           build_plan, build_plan_tree, make_dist_cg,
@@ -115,14 +117,16 @@ class CooOperator:
 
 @dataclasses.dataclass
 class BlockEllOperator:
-    """Block-ELL SpMV through the CUDA kernels (their plain version on the
-    CPU): ``spmv_bell`` for an (n,) operand, ``spmv_bell_multi`` for an
-    (n, nb) batch, which reads each block once for all columns."""
+    """Block-ELL SpMV through the sell route (its plain version on the
+    CPU): the blocks' nonzero entries, indexed once by
+    :func:`~repro_torch.kernels.spmv_bell.bell_index`, for an (n,) operand
+    and for an (n, nb) batch alike."""
 
     n: int
     blocks: torch.Tensor
     cols: torch.Tensor
     diag_: torch.Tensor
+    index: BellIndex
 
     batch_native = True
     dot = staticmethod(vdot)
@@ -134,17 +138,19 @@ class BlockEllOperator:
         n = len(indptr) - 1
         blocks, cols, _meta = csr_to_block_ell(indptr, indices, data, n,
                                                bm=bm, bk=bk, nnzb=nnzb)
-        return cls(n=n, blocks=to_device(blocks, device),
-                   cols=torch.from_numpy(cols).to(device),
+        blocks = to_device(blocks, device)
+        cols = torch.from_numpy(cols).to(device)
+        return cls(n=n, blocks=blocks, cols=cols,
                    diag_=to_device(csr_diagonal(indptr, indices, data),
-                                   device))
+                                   device),
+                   index=bell_index(blocks, cols, n))
 
     @property
     def device(self) -> torch.device:
         return self.blocks.device
 
     def matvec(self, x):
-        return spmv_block_ell(self.blocks, self.cols, x)
+        return spmv_block_ell(self.blocks, self.cols, x, index=self.index)
 
     def diag(self):
         return self.diag_

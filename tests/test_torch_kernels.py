@@ -19,7 +19,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash import flash_attention
 from repro_torch.kernels.pdist import pairwise_sqdist
 from repro_torch.kernels.ref import spmv_block_ell_ref
-from repro_torch.kernels.spmv_bell import csr_to_block_ell, spmv_block_ell
+from repro_torch.kernels.spmv_bell import (bell_index, csr_to_block_ell,
+                                          spmv_block_ell)
 
 _TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
@@ -132,9 +133,13 @@ def test_cpu_path_launches_nothing():
                    torch.ones(64))
     spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols),
                    torch.ones(64, 3))
+    index = bell_index(torch.from_numpy(blocks), torch.from_numpy(cols), 64)
+    for x in (torch.ones(64), torch.ones(64, 3)):
+        spmv_block_ell(torch.from_numpy(blocks), torch.from_numpy(cols), x,
+                       index=index)
     flash_attention(*(torch.ones(1, 2, 16, 16),) * 3)
-    assert _build.launches() == {"pdist": 0, "spmv_bell": 0,
-                                 "spmv_bell_multi": 0, "flash": 0,
+    assert _build.launches() == {"pdist": 0, "spmv_bell:sell": 0,
+                                 "spmv_bell_multi:sell": 0, "flash": 0,
                                  "flash_sm90": 0}
 
 
