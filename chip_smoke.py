@@ -50,6 +50,31 @@ Phases (any failure exits non-zero and prints no result line):
      exact migration of the solver state); one JSON line per request and
      per update, and the block-ELL kernel's times on the 1024^2 blocks
      for an (n,) x and at nb = 1, 4 and 16;
+  4c. (run after 5d, once phase 4's operators are freed) geoRef on the main
+     path: ``partition(g, topo, use_pallas=True)`` with its default method
+     on phase 4's system, topology and seed, the counts reset just before
+     and read just after (pdist must launch); its k-means start must equal
+     phase 4's geoKM partition vertex for vertex, its edge cut must not
+     exceed geoKM's, and every block must stay within ``min(ceil(tw
+     1.03), floor(mem))`` or, where the start already stood above it, no
+     higher; the seconds of each stage (k-means, then matching,
+     contraction and FM per level), cut, comm volumes, imbalance beside
+     geoKM's; then ``make_operator("dist_bell", part=<geoRef>)`` and
+     ``op.solve`` (residual below 1e-4, the sell route launched) with the
+     plan's halo rounds and bytes, CG iterations, ms per iteration and
+     memory beside phase 4's;
+  4d. the tree-aware pipelines with geoRef on phase 4's system and
+     topology: ``partition_tree(fanouts=(2, 2, 2))``
+     and ``partition_hier(pods=2)``, each ``HierPartition`` through
+     ``make_operator("dist_hier_bell", part=...)`` and ``op.solve``
+     (residual below 1e-4, pdist and the sell route launched); the tree
+     objective and per-level cut beside phase 5b's tables over the geoKM
+     partition;
+  4e. Table IV: ``evaluate`` over the eight methods on grid((256, 256))
+     under TOPO1 exp 4 scaled to it, one line
+     per method; no memory violations, the refined methods within their
+     caps as in 4c, geoRef's cut at most geoKM's and sfcRef's at most
+     sfc's; the winner of each metric is reported, not asserted;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
@@ -85,6 +110,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -102,6 +128,7 @@ PEAK_FLOPS = {                   # H100 SXM data sheet, dense
     "tf32": 495e12,              # TF32 tensor cores
 }
 SOLVER_REQUESTS = 8              # requests of phase 5d's dist_halo service
+TABLE_SIDE = 256                 # phase 4e: evaluate runs all eight methods
 BELL_COUNTS = ("spmv_bell:sell", "spmv_bell_multi:sell")   # block-ELL
 
 
@@ -238,9 +265,11 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     torch.cuda.synchronize()
     halo_op_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    bytes0 = torch.cuda.memory_allocated()
     op_b = make_operator(indptr, indices, data, "dist_bell", part=part, k=8)
     torch.cuda.synchronize()
     bell_op_s = time.perf_counter() - t0
+    bell_op_bytes = torch.cuda.memory_allocated() - bytes0
     plan = op_b.plan
     blocks, bcols = plan.bell_local()
     index = plan.bell_index()
@@ -251,6 +280,9 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     bell_index(blocks, bcols, plan.B)
     torch.cuda.synchronize()
     index_s = time.perf_counter() - t0
+    # phase 4c compares the geoRef partition's plan and solve with these
+    geokm = dict(part=part, partition_s=partition_s, **plan_halo(plan),
+                 operator_bytes=bell_op_bytes)
     emit(phase="operators", plan_build_s=halo_op_s,
          dist_bell_operator_s=bell_op_s,
          bell_conversion_s=bell_op_s - halo_op_s, bell_index_s=index_s,
@@ -387,6 +419,8 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
         mv_ms, it_ms = timed_cg(op, xop)
         emit(timing="cg", backend=label, matvec_ms=mv_ms, iteration_ms=it_ms,
              iters=sols[label][1], iters_timed=40)
+    geokm.update(iters=sols["dist_bell"][1], matvec_ms=mv_ms,
+                 iteration_ms=it_ms, max_memory_allocated=peak)
     emit(timing="memory", path="sparse", max_memory_allocated=peak)
 
     # dist_hier_bell builds its own block-ELL stack: free dist_bell's first
@@ -405,7 +439,306 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
         args, g, A, (indptr, indices, data), topo, part, b,
         sols["dist_halo"], errs["spmv_sell"], emit)
     rows.append(multi_row)
+    torch.cuda.empty_cache()
+    # ---- 4c-4e: the refined partitioners, once phase 4's operators are
+    # freed, so that 4c's peak reads one operator -------------------------
+    geo = georef_phase(g, A, (indptr, indices, data), topo, b, geokm, emit)
+    torch.cuda.empty_cache()
+    tree = tree_phase(args, g, A, (indptr, indices, data), topo, part, b,
+                      emit)
+    torch.cuda.empty_cache()
+    table_phase(emit)
+    rows[0]["launches_geokm"] = rows[0]["launches"]
+    rows[0]["launches_georef"] = geo["pdist"]
+    rows[0]["launches"] += geo["pdist"]
+    rows[0].update({f"launches_{k}": v["pdist"] for k, v in tree.items()})
+    rows[1]["launches_georef_dist_bell"] = geo["spmv_bell:sell"]
+    rows[1]["launches"] += geo["spmv_bell:sell"]
+    rows[1].update({f"launches_{k}_dist_hier_bell": v["spmv_bell:sell"]
+                    for k, v in tree.items()})
     return rows
+
+
+def plan_halo(plan) -> dict:
+    """A flat plan's halo schedule: rounds, slots per round, the words
+    that carry data and the padded exchange every matvec moves."""
+    words = int(plan.send_mask.sum().item())
+    return dict(halo_rounds=plan.n_rounds, halo_S=plan.S, halo_words=words,
+                halo_bytes=4 * words,
+                halo_padded_bytes=4 * plan.k * plan.n_rounds * plan.S)
+
+
+@contextlib.contextmanager
+def stage_clock(stages: list):
+    """Record the host seconds of each stage of the geoRef pipeline while
+    ``partition`` runs: the k-means start (``api.partition_balanced_kmeans``,
+    with its result), and per level the heavy-edge matching, the
+    contraction and the FM refinement (``multilevel``'s module functions).
+    Each stage appends ``(stage, vertices of its graph, seconds, result)``;
+    the clock stops after a ``torch.cuda.synchronize()``.  The wrappers
+    are removed on exit."""
+    import torch
+    import repro_torch.core.api as api
+    import repro_torch.core.multilevel as ml
+    saved = []
+
+    def clocked(mod, name, stage):
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def wrapper(g, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(g, *a, **kw)
+            torch.cuda.synchronize()
+            stages.append((stage, g.n, time.perf_counter() - t0,
+                           out if stage == "geokm" else None))
+            return out
+        setattr(mod, name, wrapper)
+
+    clocked(api, "partition_balanced_kmeans", "geokm")
+    clocked(ml, "heavy_edge_matching", "matching")
+    clocked(ml, "contract", "contract")
+    clocked(ml, "refine_partition", "refine")
+    try:
+        yield stages
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def cap_report(sizes, start_sizes, tw, mems) -> dict:
+    """Block sizes against the refinement's caps ``min(ceil(tw (1 +
+    0.03)), floor(mem))``.  FM moves a vertex only into a block with room,
+    so a block may stand above its cap only where its start already did,
+    and then no higher (a start's rounding puts up to a few vertices above
+    ``floor(mem)`` on a saturated PU)."""
+    import numpy as np
+    caps = np.minimum(np.ceil(np.asarray(tw) * 1.03), np.floor(mems))
+    over = sizes > caps
+    ok = bool(np.all(sizes <= np.maximum(caps, start_sizes)))
+    return dict(sizes=sizes.tolist(), caps=caps.tolist(),
+                start_sizes=np.asarray(start_sizes).tolist(),
+                over_cap=(sizes - caps)[over].astype(int).tolist(),
+                over_cap_at_start=(np.asarray(start_sizes) - caps)[
+                    np.asarray(start_sizes) > caps].astype(int).tolist(),
+                within_caps=ok)
+
+
+def georef_phase(g, A, csr, topo, b, geokm, emit) -> dict:
+    """Phase 4c: ``partition`` with its default method (geoRef: geoKM with
+    the pdist kernel, then the multilevel FM on the host) on phase 4's
+    system, seed and topology; its stages; its partition beside geoKM's;
+    its ``dist_bell`` plan and solve beside phase 4's.  Returns the
+    launches of the partition (pdist) and of the solve (the sell
+    route)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import partition
+    from repro_torch.core.metrics import summarize
+    from repro_torch.kernels import _build
+    from repro_torch.sparse.operator import make_operator
+
+    stages = []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with stage_clock(stages):
+        part, tw = partition(g, topo, use_pallas=True)
+    partition_s = time.perf_counter() - t0
+    launches = _build.launches()
+    start = [out for stage, _, _, out in stages if stage == "geokm"]
+    check(len(start) == 1, f"geoRef ran {len(start)} k-means")
+    same_start = int((start[0] == geokm["part"]).sum())
+    levels = sorted({n for stage, n, _, _ in stages if stage == "refine"},
+                    reverse=True)
+    per = {lvl: {st: sum(s for st2, n, s, _ in stages
+                         if st2 == st and n == lvl)
+                 for st in ("matching", "contract", "refine")}
+           for lvl in levels}
+    mine = summarize(g, part, topo, tw)
+    base = summarize(g, geokm["part"], topo, tw)
+    keys = ("cut", "max_comm_volume", "total_comm_volume", "imbalance",
+            "mem_violations", "bottleneck_objective")
+    caps = cap_report(np.bincount(part, minlength=topo.k),
+                      np.bincount(geokm["part"], minlength=topo.k), tw,
+                      topo.memories)
+    emit(phase="georef", seconds=partition_s,
+         geokm_s=sum(s for st, _, s, _ in stages if st == "geokm"),
+         geokm_s_phase4=geokm["partition_s"],
+         levels=[dict(vertices=lvl, coarsening_s=per[lvl]["matching"]
+                      + per[lvl]["contract"],
+                      matching_s=per[lvl]["matching"],
+                      contract_s=per[lvl]["contract"],
+                      refine_s=per[lvl]["refine"]) for lvl in levels],
+         start_equal_to_phase4=same_start, n=g.n, launches=launches,
+         **{k: mine[k] for k in keys},
+         geokm={k: base[k] for k in keys}, **caps)
+    check(launches["pdist"] > 0, "geoRef never launched pdist")
+    check(same_start == g.n, f"geoRef's k-means start differs from phase "
+                             f"4's geoKM in {g.n - same_start} vertices")
+    check(caps["within_caps"], f"geoRef broke its caps: {caps}")
+    check(mine["cut"] <= base["cut"], f"geoRef's cut {mine['cut']} is "
+                                      f"above geoKM's {base['cut']}")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bytes0 = torch.cuda.memory_allocated()
+    op = make_operator(*csr, "dist_bell", part=part, k=topo.k)
+    torch.cuda.synchronize()
+    op_s = time.perf_counter() - t0
+    op_bytes = torch.cuda.memory_allocated() - bytes0
+    t0 = time.perf_counter()
+    res = op.solve(b, tol=1e-6, max_iters=2000)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    solve_launches = _build.launches()
+    x = op.gather(res.x)
+    iters = int(res.iters.cpu())
+    rel = float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+    mv_ms, it_ms = timed_cg(op, op.scatter(b))
+    halo = plan_halo(op.plan)
+    emit(phase="georef_dist_bell", operator_s=op_s, solve_s=solve_s,
+         iters=iters, rel_residual=rel, matvec_ms=mv_ms, iteration_ms=it_ms,
+         iters_timed=40, B=op.plan.B, **halo, operator_bytes=op_bytes,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=solve_launches,
+         geokm={k: geokm[k] for k in (
+             "iters", "matvec_ms", "iteration_ms", "max_memory_allocated",
+             "operator_bytes", *halo)})
+    check(np.isfinite(x).all() and x.shape == (g.n,),
+          "geoRef dist_bell: non-finite or misshapen solution")
+    check(rel < 1e-4, f"geoRef dist_bell: relative residual {rel} >= 1e-4")
+    check(0 < iters < 2000, f"geoRef dist_bell: {iters} iterations")
+    check(solve_launches["spmv_bell:sell"] > 0,
+          "the geoRef dist_bell solve never launched the sell route")
+    del op, res
+    return {"pdist": launches["pdist"],
+            "spmv_bell:sell": solve_launches["spmv_bell:sell"]}
+
+
+def tree_phase(args, g, A, csr, topo, base, b, emit) -> dict:
+    """Phase 4d: the tree-aware pipelines with geoRef on phase 4's system
+    and topology, each ``HierPartition`` fed to
+    ``make_operator("dist_hier_bell", part=...)`` and solved; the tree
+    objective and per-level cut beside phase 5b's tables (the canonical
+    fanouts (2, 2, 2) table, ``topo.pod_assignment(2)``) over phase 4's
+    geoKM partition ``base``.  Returns each pipeline's pdist and
+    sell-route launches."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import partition_hier, partition_tree
+    from repro_torch.core.metrics import (tree_comm_volumes, tree_cut_split,
+                                          tree_objective)
+    from repro_torch.core.topology import canonical_ancestors
+    from repro_torch.kernels import _build
+    from repro_torch.sparse.operator import make_operator
+
+    cases = (("partition_tree", canonical_ancestors((2, 2, 2)),
+              lambda: partition_tree(g, topo, fanouts=(2, 2, 2),
+                                     use_pallas=True)),
+             ("partition_hier", topo.pod_assignment(2)[None, :],
+              lambda: partition_hier(g, topo, pods=2, use_pallas=True)))
+    out = {}
+    for label, base_anc, run in cases:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = run()
+        partition_s = time.perf_counter() - t0
+        part_launches = _build.launches()
+
+        def split(part, anc):
+            return dict(
+                tree_objective=tree_objective(g, part, anc, res.lams),
+                cut_by_level=tree_cut_split(g, part, anc).tolist(),
+                comm_volume_by_level=tree_comm_volumes(
+                    g, part, topo.k, anc).sum(axis=1).tolist())
+
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        op = make_operator(*csr, "dist_hier_bell", part=res)
+        torch.cuda.synchronize()
+        op_s = time.perf_counter() - t0
+        r = op.solve(b, tol=1e-6, max_iters=2000)
+        x = op.gather(r.x)
+        launches = _build.launches()
+        iters = int(r.iters.cpu())
+        rel = float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+        mv_ms, it_ms = timed_cg(op, op.scatter(b))
+        emit(phase="tree_aware", pipeline=label, grid=args.side,
+             fanouts=list(res.fanouts), lams=list(res.lams),
+             partition_s=partition_s, partition_launches=part_launches,
+             sizes=np.bincount(res.part, minlength=topo.k).tolist(),
+             anc=res.anc.tolist(), **split(res.part, res.anc),
+             geokm_canonical=split(base, base_anc), operator_s=op_s,
+             S_lvl=list(op.plan.S_lvl),
+             n_rounds_lvl=list(op.plan.n_rounds_lvl), iters=iters,
+             rel_residual=rel, matvec_ms=mv_ms, iteration_ms=it_ms,
+             iters_timed=40, launches=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated())
+        check(part_launches["pdist"] > 0, f"{label} never launched pdist")
+        check(np.isfinite(x).all() and x.shape == (g.n,),
+              f"{label} dist_hier_bell: non-finite or misshapen solution")
+        check(rel < 1e-4, f"{label} dist_hier_bell: relative residual {rel}")
+        check(0 < iters < 2000, f"{label} dist_hier_bell: {iters} iterations")
+        check(launches["spmv_bell:sell"] > 0,
+              f"{label} dist_hier_bell never launched the sell route")
+        out[label] = {"pdist": part_launches["pdist"],
+                      "spmv_bell:sell": launches["spmv_bell:sell"]}
+        del op, r
+        torch.cuda.empty_cache()
+    return out
+
+
+def table_phase(emit) -> None:
+    """Phase 4e: ``evaluate`` (Table IV) over the eight methods on
+    grid((TABLE_SIDE, TABLE_SIDE)) under TOPO1 exp 4 scaled to it: one
+    line per method, the caps of the refined methods against their
+    starts, and which method wins each metric (reported, not
+    asserted)."""
+    import numpy as np
+    from repro_torch.core.api import METHODS, _greedy_growing, evaluate
+    from repro_torch.core.balanced_kmeans import (
+        partition_hierarchical_kmeans)
+    from repro_torch.core.block_sizes import target_block_sizes
+    from repro_torch.core.topology import Topology, scale_to_load
+    from repro_torch.sparse.generators import grid
+
+    side = TABLE_SIDE
+    g = grid((side, side))
+    topo = scale_to_load(Topology.topo1(8, 2 / 8, 8.0, 8.5), g.n)
+    t0 = time.perf_counter()
+    rows = evaluate(g, topo, METHODS, verbose=False)
+    total_s = time.perf_counter() - t0
+    tw = target_block_sizes(g.n, topo)
+
+    def sizes_of(row):
+        return np.rint(np.asarray(row["per_pu_compute"])
+                       * topo.speeds).astype(np.int64)
+
+    starts = {"geoRef": sizes_of(rows["geoKM"]),
+              "sfcRef": sizes_of(rows["sfc"]),
+              "geoHier": np.bincount(partition_hierarchical_kmeans(
+                  g, tw, topo.fanouts), minlength=topo.k),
+              "greedyRef": np.bincount(_greedy_growing(g, tw),
+                                       minlength=topo.k)}
+    for m in METHODS:
+        caps = (cap_report(sizes_of(rows[m]), starts[m], tw, topo.memories)
+                if m in starts else {})
+        emit(phase="table_iv", method=m, grid=side, **rows[m], **caps)
+        check(rows[m]["mem_violations"] == 0,
+              f"{m}: {rows[m]['mem_violations']} memory violations")
+        check(caps.get("within_caps", True), f"{m} broke its caps: {caps}")
+    check(rows["geoRef"]["cut"] <= rows["geoKM"]["cut"],
+          f"geoRef's cut {rows['geoRef']['cut']} is above geoKM's "
+          f"{rows['geoKM']['cut']}")
+    check(rows["sfcRef"]["cut"] <= rows["sfc"]["cut"],
+          f"sfcRef's cut {rows['sfcRef']['cut']} is above sfc's "
+          f"{rows['sfc']['cut']}")
+    best = {k: min(METHODS, key=lambda m: rows[m][k])
+            for k in ("cut", "max_comm_volume", "total_comm_volume",
+                      "bottleneck_objective", "time_s")}
+    emit(phase="table_iv_winners", grid=side, seconds=total_s, **best)
 
 
 def bell_checks(args, dev, gen, emit, errs: dict) -> None:

@@ -1,7 +1,8 @@
 """Balanced k-means geometric partitioner (geoKM) — von Looz et al. ICPP'18,
 used by the paper as Geographer's phase 1, with heterogeneous target block
 weights (Algorithm 1 output).  The port of
-``src/repro/core/balanced_kmeans.py`` (flat mode).
+``src/repro/core/balanced_kmeans.py``, flat and hierarchical
+(:func:`partition_hierarchical_kmeans`, the ``geoHier`` start).
 
 Method.  Minimize sum of squared point-center distances subject to per-block
 target sizes tw_i.  Each center carries a multiplicative price gamma_i;
@@ -166,3 +167,56 @@ def partition_balanced_kmeans(g: Graph, tw: np.ndarray, seed: int = 0,
     if exact:
         part = _exact_rebalance(coords, centers.cpu().numpy(), part, tw)
     return part
+
+
+def partition_hierarchical_kmeans(g: Graph, tw: np.ndarray,
+                                  fanouts: tuple[int, ...], seed: int = 0,
+                                  device=None, **kw) -> np.ndarray:
+    """Hierarchical balanced k-means (Sec. V): partition level-by-level along
+    the topology tree so border-sharing blocks land on nearby PUs.
+
+    At level i, each current block is split into fanouts[i+1] children whose
+    target weights are the sums of the leaf tw's under each child.  Every
+    child k-means runs on ``device`` (default the card); the bookkeeping is
+    host NumPy, copied from the reference.
+    """
+    if g.coords is None:
+        raise ValueError("hierarchical k-means needs coordinates")
+    device = resolve_device(device)
+    tw = np.asarray(tw, dtype=np.float64)
+    k = len(tw)
+    assert int(np.prod(fanouts)) == k
+    part = np.zeros(g.n, dtype=np.int64)   # block id at current level
+    leaf_lo = {0: 0}
+    leaf_hi = {0: k}
+    for level, fan in enumerate(fanouts):
+        new_part = np.zeros_like(part)
+        new_lo, new_hi = {}, {}
+        for blk in np.unique(part):
+            lo, hi = leaf_lo[blk], leaf_hi[blk]
+            per_child = (hi - lo) // fan
+            child_tw = np.array([tw[lo + c * per_child:
+                                    lo + (c + 1) * per_child].sum()
+                                 for c in range(fan)])
+            mask = part == blk
+            ids = np.nonzero(mask)[0]
+            sub = Graph(indptr=np.array([0, 0]), indices=np.zeros(0, np.int32),
+                        weights=np.zeros(0, np.float32),
+                        coords=g.coords[ids])
+            sub.indptr = np.zeros(len(ids) + 1, dtype=np.int64)  # coords-only
+            # scale child tw to the actual number of points in this block
+            scale = len(ids) / max(child_tw.sum(), 1e-9)
+            sub_part = partition_balanced_kmeans(sub, child_tw * scale,
+                                                 seed=seed, device=device,
+                                                 **kw)
+            for c in range(fan):
+                cid = blk * fan + c
+                new_part[ids[sub_part == c]] = cid
+                new_lo[cid] = lo + c * per_child
+                new_hi[cid] = lo + (c + 1) * per_child
+        part, leaf_lo, leaf_hi = new_part, new_lo, new_hi
+    # final: blocks are already leaf-indexed (level order == leaf order)
+    out = np.zeros(g.n, dtype=np.int32)
+    for blk in np.unique(part):
+        out[part == blk] = leaf_lo[blk]
+    return out

@@ -6,7 +6,9 @@
     port works in int64 and masks every step to the same 32 bits.  The
     codes are equal integers.
   * weighted_split_assignment — cut a visiting order at cumulative target
-    weights (host NumPy, copied and bit-equal).
+    weights (host NumPy, copied and bit-equal);
+  * principal_axis — the inertial axis RIB splits along (host NumPy,
+    copied and bit-equal: float64 power iteration).
 """
 from __future__ import annotations
 
@@ -68,3 +70,17 @@ def weighted_split_assignment(order: np.ndarray,
     ranks[order] = np.arange(n)
     part = np.searchsorted(bounds, ranks, side="right").astype(np.int32)
     return np.minimum(part, len(tw) - 1)
+
+
+def principal_axis(coords: np.ndarray, iters: int = 50) -> np.ndarray:
+    """Principal inertial axis via power iteration on the covariance."""
+    c = coords - coords.mean(axis=0, keepdims=True)
+    cov = c.T @ c
+    v = np.ones(cov.shape[0]) / np.sqrt(cov.shape[0])
+    for _ in range(iters):
+        v = cov @ v
+        nv = np.linalg.norm(v)
+        if nv == 0:
+            return np.eye(cov.shape[0])[0]
+        v /= nv
+    return v

@@ -1,30 +1,29 @@
 """Partition quality metrics (Sec. II-A / VI-a), host NumPy copied from
-``src/repro/core/metrics.py`` and bit-equal to it: the subset the port uses
-to report partition quality.
+``src/repro/core/metrics.py`` and bit-equal to it.
 
-  * edge cut    — weight of edges with endpoints in different blocks
-  * comm volume — per block b: # of vertices outside b adjacent to b
-                  (data words b must receive); max over blocks is the
-                  paper's maxCommVolume
-  * imbalance   — max_i tw_actual(b_i)/tw_target(b_i)
+  * edge cut          — weight of edges with endpoints in different blocks
+  * comm volume       — per block b: # of vertices outside b adjacent to b
+                        (data words b must receive); max over blocks is the
+                        paper's maxCommVolume
+  * imbalance         — max_i tw_actual(b_i)/tw_target(b_i)
+  * load ratio        — objective (2): max_i |b_i| / c_s(p_i)
 
-Hierarchical splits: given an (h-1, k) ancestor table of the blocks
-(``topology.normalize_tree_of``), cut and comm volume split exactly into
-per-tree-level components — every cut edge / received word crosses a block
-pair with exactly one LCA level.  The two-level (pod) splits are the
-``h == 2`` instance.
-
-Cost-model metrics (what ``costmodel`` and ``replan_policy`` price a
-partition with): the weighted tree objective ``sum_level lam[level] *
-cut[level]`` and the per-PU bottleneck (makespan) split, with per-level
-weights from the shared default link costs (``resolve_lams``).
+Hierarchical (tree-aware) metrics: given an (h-1, k) ancestor table of
+the blocks (``topology.normalize_tree_of``), cut and comm volume split
+exactly into per-tree-level components — every cut edge / received word
+crosses a block pair with exactly one LCA level — and the *weighted tree
+objective* ``sum_level lam[level] * cut[level]`` prices each level by its
+link cost (``topology.LinkCosts.lams``), the objective the tree-aware
+refinement minimizes.  The two-level (pod) metrics are the ``h == 2``
+instance.  :func:`summarize`, :func:`summarize_tree` and
+:func:`summarize_hier` are the rows of ``core.api.evaluate`` (Table IV).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..sparse.graph import Graph
-from .topology import LinkCosts, level_matrix
+from .topology import LinkCosts, Topology, level_matrix
 
 
 def _default_link_costs() -> LinkCosts:
@@ -35,6 +34,10 @@ def _default_link_costs() -> LinkCosts:
     come in through the ``lam``/``lams`` arguments
     (``Topology.link_costs()``)."""
     return LinkCosts()
+
+
+def _resolve_lam(lam: float | None) -> float:
+    return _default_link_costs().lam if lam is None else lam
 
 
 def resolve_lams(lams, h: int):
@@ -55,6 +58,7 @@ def edge_cut(g: Graph, part: np.ndarray) -> float:
     src, dst, w = g.edge_list()
     cut2 = np.sum(w * (part[src] != part[dst]))   # both directions counted
     return float(cut2) / 2.0
+
 
 # The linearized-pair dedup key is ``recv * n + vert`` in int64: it wraps
 # (silently, into negative keys that unique/sort still accept) once
@@ -98,6 +102,10 @@ def max_comm_volume(g: Graph, part: np.ndarray, k: int) -> int:
     return int(comm_volumes(g, part, k).max(initial=0))
 
 
+def total_comm_volume(g: Graph, part: np.ndarray, k: int) -> int:
+    return int(comm_volumes(g, part, k).sum())
+
+
 def block_sizes_of(part: np.ndarray, k: int) -> np.ndarray:
     return np.bincount(part, minlength=k)
 
@@ -121,7 +129,50 @@ def imbalance(part: np.ndarray, tw: np.ndarray) -> float:
     return float((sizes[pos] / tw[pos]).max())
 
 
-# -- hierarchical (tree-aware) splits --------------------------------------
+def load_ratio(part: np.ndarray, topo: Topology) -> float:
+    """Objective (2) evaluated on the realized partition."""
+    sizes = block_sizes_of(part, topo.k)
+    return float(np.max(sizes / topo.speeds))
+
+
+def memory_violations(part: np.ndarray, topo: Topology,
+                      slack: float = 0.0) -> int:
+    """# of blocks violating constraint (3), with optional relative slack."""
+    sizes = block_sizes_of(part, topo.k)
+    return int(np.sum(sizes > topo.memories * (1.0 + slack)))
+
+
+def boundary_mask(g: Graph, part: np.ndarray) -> np.ndarray:
+    """Vertices with >=1 neighbor in another block."""
+    src, dst, _ = g.edge_list()
+    ext = part[src] != part[dst]
+    mask = np.zeros(g.n, dtype=bool)
+    mask[src[ext]] = True
+    return mask
+
+
+def summarize(g: Graph, part: np.ndarray, topo: Topology,
+              tw: np.ndarray) -> dict:
+    vols = comm_volumes(g, part, topo.k)
+    compute = block_sizes_of(part, topo.k) / topo.speeds
+    total = compute + vols
+    return {
+        "cut": edge_cut(g, part),
+        "max_comm_volume": int(vols.max(initial=0)),
+        "total_comm_volume": int(vols.sum()),
+        "imbalance": imbalance(part, tw),
+        "load_ratio": load_ratio(part, topo),
+        "mem_violations": memory_violations(part, topo, slack=0.03),
+        # per-PU modeled split of the flat (single-level) bottleneck:
+        # compute = Algorithm-1 speeds x block weight, comm = dedup halo
+        "per_pu_compute": compute.tolist(),
+        "per_pu_comm_volume": vols.tolist(),
+        "bottleneck_objective": float(total.max(initial=0.0)),
+        "critical_pu": int(total.argmax()) if len(total) else 0,
+    }
+
+
+# -- hierarchical (tree-aware) metrics --------------------------------------
 
 def tree_cut_split(g: Graph, part: np.ndarray,
                    anc: np.ndarray) -> np.ndarray:
@@ -178,7 +229,6 @@ def tree_objective(g: Graph, part: np.ndarray, anc: np.ndarray,
     return float(obj)
 
 
-
 def per_pu_model_costs(g: Graph, part: np.ndarray, anc: np.ndarray,
                        lams=None, speeds: np.ndarray | None = None,
                        c_comp: float = 1.0,
@@ -218,7 +268,6 @@ def per_pu_model_costs(g: Graph, part: np.ndarray, anc: np.ndarray,
             "total": compute + comm}
 
 
-
 def bottleneck_objective(g: Graph, part: np.ndarray, anc: np.ndarray,
                          lams=None, speeds: np.ndarray | None = None,
                          c_comp: float = 1.0,
@@ -239,7 +288,6 @@ def bottleneck_objective(g: Graph, part: np.ndarray, anc: np.ndarray,
     pp = per_pu_model_costs(g, part, anc, lams=lams, speeds=speeds,
                             c_comp=c_comp, vw=vw)
     return float(pp["total"].max(initial=0.0))
-
 
 
 def pod_cut_split(g: Graph, part: np.ndarray,
@@ -263,3 +311,70 @@ def pod_comm_volumes(g: Graph, part: np.ndarray, k: int,
     volume."""
     vols = tree_comm_volumes(g, part, k, np.asarray(pod_of)[None, :])
     return vols[0], vols[1]
+
+
+def two_level_objective(g: Graph, part: np.ndarray, pod_of: np.ndarray,
+                        lam: float | None = None) -> float:
+    """The weighted two-level cut ``intra + lam * inter`` — the ``h == 2``
+    instance of :func:`tree_objective`.  ``lam`` defaults to the shared
+    cost model's round-latency ratio (one resolution point with
+    :func:`summarize_hier`)."""
+    lam = _resolve_lam(lam)
+    return tree_objective(g, part, np.asarray(pod_of)[None, :],
+                          lams=(1.0, lam))
+
+
+def summarize_tree(g: Graph, part: np.ndarray, topo: Topology,
+                   tw: np.ndarray, anc: np.ndarray,
+                   lams=None) -> dict:
+    """:func:`summarize` plus the per-level cut/volume splits and the
+    weighted tree objective (Table IV analogue for the tree pipeline)."""
+    anc = np.atleast_2d(np.asarray(anc))
+    h = anc.shape[0] + 1
+    lams = resolve_lams(lams, h)
+    out = summarize(g, part, topo, tw)
+    cuts = tree_cut_split(g, part, anc)
+    vols = tree_comm_volumes(g, part, topo.k, anc)
+    obj = 0.0
+    for lam_l, cut_l in zip(lams, cuts):
+        obj += lam_l * cut_l
+    # tree-aware bottleneck split: same lams, Algorithm-1 speeds
+    compute = block_sizes_of(part, topo.k) / topo.speeds
+    comm = np.asarray(lams, dtype=np.float64) @ vols
+    total = compute + comm
+    out.update(
+        cut_by_level=cuts.tolist(),
+        comm_volume_by_level=[int(v.sum()) for v in vols],
+        max_comm_volume_by_level=[int(v.max(initial=0)) for v in vols],
+        tree_objective=float(obj),
+        lams=list(lams),
+        per_pu_compute=compute.tolist(),
+        per_pu_comm=comm.tolist(),
+        bottleneck_objective=float(total.max(initial=0.0)),
+        critical_pu=int(total.argmax()) if len(total) else 0,
+    )
+    return out
+
+
+def summarize_hier(g: Graph, part: np.ndarray, topo: Topology,
+                   tw: np.ndarray, pod_of: np.ndarray,
+                   lam: float | None = None) -> dict:
+    """:func:`summarize` plus the intra/inter split and the weighted
+    objective — the two-level view of :func:`summarize_tree` (same
+    default cost model, so the objective and the summary can't
+    diverge)."""
+    lam = _resolve_lam(lam)
+    out = summarize_tree(g, part, topo, tw,
+                         np.asarray(pod_of)[None, :], lams=(1.0, lam))
+    cuts = out.pop("cut_by_level")
+    vols = out.pop("comm_volume_by_level")
+    maxv = out.pop("max_comm_volume_by_level")
+    out.pop("lams")
+    out.update(
+        cut_intra=cuts[0], cut_inter=cuts[1],
+        comm_volume_intra=vols[0], comm_volume_inter=vols[1],
+        max_comm_volume_intra=maxv[0], max_comm_volume_inter=maxv[1],
+        two_level_objective=out.pop("tree_objective"),
+        lam=lam,
+    )
+    return out

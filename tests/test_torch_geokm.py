@@ -90,14 +90,16 @@ def test_partition_entry_point(inst):
     np.testing.assert_array_equal(np.bincount(part, minlength=8),
                                   np.bincount(ref_part, minlength=8))
     assert float(np.mean(part == ref_part)) >= 0.98
+    # the other methods, the tree-aware keywords and the bottleneck
+    # objective run (tests/test_torch_partition.py holds their results)
     for method in ("geoRef", "sfc", "greedyRef"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_partition(g, topo, method, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_partition(g, topo, "geoKM", pods=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_partition(g, topo, "geoKM", objective="bottleneck",
-                       device="cpu")
+        p, _ = port_partition(g, topo, method, device="cpu")
+        assert p.shape == (g.n,) and p.dtype == np.int32
+    p, _ = port_partition(g, topo, "geoKM", pods=2, device="cpu")
+    assert np.bincount(p, minlength=8).sum() == g.n
+    p, _ = port_partition(g, topo, "sfc", objective="bottleneck",
+                          device="cpu")
+    assert p.shape == (g.n,)
     with pytest.raises(ValueError):
         port_partition(g, topo, "nope", device="cpu")
 

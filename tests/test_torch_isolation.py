@@ -53,7 +53,8 @@ def _tiny():
     return g, laplacian_csr(g, shift=0.1)
 
 
-@pytest.mark.parametrize("entry", ["partition", "make_operator",
+@pytest.mark.parametrize("entry", ["partition", "partition_tree",
+                                   "evaluate", "make_operator",
                                    "build_plan", "cg_solve_global",
                                    "models.transformer.init_model",
                                    "launch.serve.serve_tokens",
@@ -61,7 +62,7 @@ def _tiny():
                                    "launch.serve.main --solver"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.api import partition
+    from repro_torch.core.api import evaluate, partition, partition_tree
     from repro_torch.core.topology import Topology, scale_to_load
     from repro_torch.launch.serve import SolverService, main, serve_tokens
     from repro_torch.models.transformer import init_model
@@ -71,9 +72,12 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
     part = np.arange(g.n) % 2
     op = make_operator(indptr, indices, data, "coo", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = scale_to_load(Topology.homogeneous(2), g.n)
     calls = {
-        "partition": lambda: partition(g, scale_to_load(
-            Topology.homogeneous(2), g.n), "geoKM"),
+        "partition": lambda: partition(g, topo, "geoKM"),
+        "partition_tree": lambda: partition_tree(g, topo, "greedyRef",
+                                                 fanouts=(2,)),
+        "evaluate": lambda: evaluate(g, topo, ("rcb",), verbose=False),
         "make_operator": lambda: make_operator(indptr, indices, data, "coo"),
         "build_plan": lambda: build_plan(indptr, indices, data, part, 2),
         "cg_solve_global": lambda: cg_solve_global(op, np.ones(g.n)),
