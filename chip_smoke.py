@@ -75,6 +75,22 @@ Phases (any failure exits non-zero and prints no result line):
      per method; no memory violations, the refined methods within their
      caps as in 4c, geoRef's cut at most geoKM's and sfcRef's at most
      sfc's; the winner of each metric is reported, not asserted;
+  4f. the analysis layer (``repro_torch.analysis``) on the operators
+     that phases 4, 5b and 4d build anyway: phase 4's dist_bell plan and
+     phase 5b's (2, 2, 2) tree plan built with ``validate=True``, and
+     phase 4d's ``partition_tree`` / ``partition_hier`` with
+     ``validate=True``, the verifier's seconds (the ``verify_report``
+     each builder keeps) on an ``analysis_verify`` line; one warm-up audit
+     of a small dist_halo operator, which takes torch's one-time
+     dispatch-mode imports; the exchange audit (``audit_operator``: one
+     matvec and one CG chunk on the card, the counts reset just before
+     and read just after) of dist_halo and dist_bell (after phase 5's timings), dist_hier on
+     the tree and dist_hier_bell on two pods (in phase 5b), each with no
+     diagnostic, its payload bytes per level equal to the partition's
+     comm volumes x 4, and the sell route launched by the block-ELL
+     ones; and on the tree operator a consistent swap of two rounds,
+     which the verifier must pass and the audit must report as exactly
+     TRACE002;
   6. hold both flash kernels against their plain version and check the
      route of each call: bf16 with head dim 64 or 128 goes to flash_sm90
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
@@ -198,7 +214,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.core.api import partition
     from repro_torch.core.block_sizes import (target_block_sizes,
                                               target_block_sizes_torch)
-    from repro_torch.core.metrics import (edge_cut, imbalance,
+    from repro_torch.core.metrics import (comm_volumes, edge_cut, imbalance,
                                           max_comm_volume)
     from repro_torch.core.topology import Topology, scale_to_load
     from repro_torch.kernels import _build
@@ -266,9 +282,12 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     halo_op_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     bytes0 = torch.cuda.memory_allocated()
-    op_b = make_operator(indptr, indices, data, "dist_bell", part=part, k=8)
+    op_b = make_operator(indptr, indices, data, "dist_bell", part=part,
+                         k=8, validate=True)
     torch.cuda.synchronize()
-    bell_op_s = time.perf_counter() - t0
+    bell_verify_s = emit_verified("dist_bell", op_b.plan.verify_report,
+                                  emit)
+    bell_op_s = time.perf_counter() - t0 - bell_verify_s
     bell_op_bytes = torch.cuda.memory_allocated() - bytes0
     plan = op_b.plan
     blocks, bcols = plan.bell_local()
@@ -284,7 +303,7 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     geokm = dict(part=part, partition_s=partition_s, **plan_halo(plan),
                  operator_bytes=bell_op_bytes)
     emit(phase="operators", plan_build_s=halo_op_s,
-         dist_bell_operator_s=bell_op_s,
+         dist_bell_operator_s=bell_op_s, dist_bell_verify_s=bell_verify_s,
          bell_conversion_s=bell_op_s - halo_op_s, bell_index_s=index_s,
          k=plan.k, B=plan.B, S=plan.S, n_rounds=plan.n_rounds,
          bell_shape=list(blocks.shape), NNZB=int(blocks.shape[2]),
@@ -423,14 +442,23 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
                  iteration_ms=it_ms, max_memory_allocated=peak)
     emit(timing="memory", path="sparse", max_memory_allocated=peak)
 
+    # ---- 4f. the exchange audit of the main path's operators ------------
+    audit_warmup(emit)
+    flat_bytes = [float(comm_volumes(g, part, 8).sum()) * 4]
+    audit_phase("dist_halo", op_h, flat_bytes, emit, sell=False)
+    audit_bell = audit_phase("dist_bell", op_b, flat_bytes, emit, sell=True)
+
     # dist_hier_bell builds its own block-ELL stack: free dist_bell's first
     del op_b, op, plan, blocks, bcols, index, xs, x_flat, live, boff
     torch.cuda.empty_cache()
-    hier_bell = other_backends(g, A, (indptr, indices, data), topo, part, b,
-                               op_h, sols["dist_halo"][0], emit)
+    hier_bell, audit_hier_bell = other_backends(
+        g, A, (indptr, indices, data), topo, part, b, op_h,
+        sols["dist_halo"][0], emit)
     rows[1]["launches_dist_bell"] = rows[1]["launches"]
     rows[1]["launches_dist_hier_bell"] = hier_bell
-    rows[1]["launches"] += hier_bell
+    rows[1]["launches_audit_dist_bell"] = audit_bell
+    rows[1]["launches_audit_dist_hier_bell"] = audit_hier_bell
+    rows[1]["launches"] += hier_bell + audit_bell + audit_hier_bell
     del op_h
     torch.cuda.empty_cache()
     block_jacobi_phase(args, emit)
@@ -457,6 +485,133 @@ def sparse_path(args, dev, gen, emit) -> list[dict]:
     rows[1].update({f"launches_{k}_dist_hier_bell": v["spmv_bell:sell"]
                     for k, v in tree.items()})
     return rows
+
+
+def emit_verified(label: str, report, emit) -> float:
+    """The ``analysis_verify`` line of a build made with ``validate=True``:
+    ``report`` is the ``verify_report`` the builder kept (``info
+    ["seconds"]`` the verifier's host time).  Fails unless the build was
+    verified and passed.  Returns the verifier's seconds."""
+    check(report is not None, f"{label}: validate=True ran no verifier")
+    seconds = report.info["seconds"]
+    emit(phase="analysis_verify", build=label, subject=report.subject,
+         seconds=seconds, ok=report.ok)
+    check(report.ok, f"{label}: {report.subject} failed verification")
+    return seconds
+
+
+def audit_phase(label: str, op, expect_bytes, emit, sell: bool) -> int:
+    """The exchange audit (``repro_torch.analysis.audit_operator``: one
+    matvec and one CG chunk on the card) of ``op``, with the launch counts
+    reset just before and read just after.  It must report no codes, its
+    payload bytes per level must equal ``expect_bytes`` (the partition's
+    comm volumes x 4), and a block-ELL operator must launch the sell
+    route.  Returns the sell-route launches."""
+    import torch
+    from repro_torch.analysis import audit_operator
+    from repro_torch.kernels import _build
+
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rep = audit_operator(op)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _build.launches()
+    ex = rep.info["exchange"]
+    got = list(ex.payload_bytes_lvl)
+    emit(phase="analysis_audit", backend=label, seconds=seconds,
+         ok=rep.ok, codes=sorted(rep.codes()), payload_bytes_lvl=got,
+         comm_volume_bytes_lvl=list(expect_bytes),
+         rounds_lvl=[len(ex.rounds.get(lvl, {})) for lvl in range(len(got))],
+         cg=rep.info["cg"], launches=launches)
+    check(rep.ok, f"audit of {label} reported: {rep}")
+    check(got == list(expect_bytes), f"audit of {label}: payload bytes "
+          f"{got} != comm volumes x 4 {list(expect_bytes)}")
+    check(rep.info["matvec"]["finite"] and rep.info["cg"]["finite"],
+          f"audit of {label}: non-finite matvec or CG chunk")
+    check((launches["spmv_bell:sell"] > 0) == sell,
+          f"audit of {label} launched {launches}")
+    return launches["spmv_bell:sell"]
+
+
+def audit_warmup(emit) -> None:
+    """The first dispatch mode of a process imports torch modules once
+    (seconds).  One audit of a small operator on the card takes that cost
+    before phase 4f, so each later audit is timed once, at its own cost;
+    it must report no codes either."""
+    import torch
+    from repro_torch.analysis import audit_backend
+
+    t0 = time.perf_counter()
+    rep = audit_backend("dist_halo", n=256, fanouts=(4,))
+    torch.cuda.synchronize()
+    emit(phase="analysis_warmup", subject=rep.subject,
+         seconds=time.perf_counter() - t0, ok=rep.ok)
+    check(rep.ok, f"audit of the warm-up operator reported: {rep}")
+
+
+def swap_rounds_consistently(plan, lvl: int, c0: int, c1: int):
+    """Rounds c0 and c1 of tree level ``lvl`` exchanged consistently:
+    perms, send schedule columns and the halo slot ranges every edge reads
+    move together, so the result passes every PLAN0xx check — a valid
+    plan, but not the one the operator runs."""
+    import dataclasses
+    offs = plan.level_offsets()
+    S = int(plan.S_lvl[lvl])
+    a0, a1 = int(offs[lvl]) + c0 * S, int(offs[lvl]) + c1 * S
+
+    def remap(cols):
+        cols = cols.clone()
+        in0 = (cols >= a0) & (cols < a0 + S)
+        in1 = (cols >= a1) & (cols < a1 + S)
+        cols[in0] += a1 - a0
+        cols[in1] += a0 - a1
+        return cols
+
+    def swapped(t):
+        t = t.clone()
+        t[:, [c0, c1]] = t[:, [c1, c0]]
+        return t
+
+    perms = list(plan.round_perms_lvl[lvl])
+    perms[c0], perms[c1] = perms[c1], perms[c0]
+    rp, si, sm = (list(x) for x in (plan.round_perms_lvl,
+                                     plan.send_idx_lvl, plan.send_mask_lvl))
+    rp[lvl] = tuple(perms)
+    si[lvl] = swapped(si[lvl])
+    sm[lvl] = swapped(sm[lvl])
+    return dataclasses.replace(
+        plan, round_perms_lvl=tuple(rp), send_idx_lvl=tuple(si),
+        send_mask_lvl=tuple(sm), cols=remap(plan.cols),
+        cols_bnd_lvl=tuple(remap(c) for c in plan.cols_bnd_lvl))
+
+
+def drift_check(op, emit) -> None:
+    """A consistent swap of two distinct rounds of the tree plan: the
+    verifier must pass it and the audit must report exactly TRACE002."""
+    from repro_torch.analysis import audit_operator, verify_plan
+    plan = op.plan
+    for lvl in range(plan.h):
+        full = [(c, frozenset(p)) for c, p in
+                enumerate(plan.round_perms_lvl[lvl]) if p]
+        pair = next(((c0, c1) for i, (c0, s0) in enumerate(full)
+                     for c1, s1 in full[i + 1:] if s0 != s1), None)
+        if pair is not None:
+            break
+    check(pair is not None, "the tree plan has no two distinct rounds")
+    mut = swap_rounds_consistently(plan, lvl, *pair)
+    t0 = time.perf_counter()
+    vrep = verify_plan(mut)
+    verify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep = audit_operator(op, plan=mut, solver=False)
+    audit_s = time.perf_counter() - t0
+    emit(check="analysis_drift", level=lvl, rounds=list(pair),
+         verify_ok=vrep.ok, verify_s=verify_s, codes=sorted(rep.codes()),
+         audit_s=audit_s, ok=vrep.ok and rep.codes() == {"TRACE002"})
+    check(vrep.ok, f"the verifier rejects the consistent round swap: {vrep}")
+    check(rep.codes() == {"TRACE002"},
+          f"the audit of the round swap reported {rep.codes()}: {rep}")
 
 
 def plan_halo(plan) -> dict:
@@ -635,9 +790,10 @@ def tree_phase(args, g, A, csr, topo, base, b, emit) -> dict:
 
     cases = (("partition_tree", canonical_ancestors((2, 2, 2)),
               lambda: partition_tree(g, topo, fanouts=(2, 2, 2),
-                                     use_pallas=True)),
+                                     use_pallas=True, validate=True)),
              ("partition_hier", topo.pod_assignment(2)[None, :],
-              lambda: partition_hier(g, topo, pods=2, use_pallas=True)))
+              lambda: partition_hier(g, topo, pods=2, use_pallas=True,
+                                     validate=True)))
     out = {}
     for label, base_anc, run in cases:
         _build.reset_launches()
@@ -645,6 +801,7 @@ def tree_phase(args, g, A, csr, topo, base, b, emit) -> dict:
         res = run()
         partition_s = time.perf_counter() - t0
         part_launches = _build.launches()
+        emit_verified(label, res.verify_report, emit)
 
         def split(part, anc):
             return dict(
@@ -961,29 +1118,42 @@ def timed_cg(op, xop, n_it: int = 40) -> tuple[float, float]:
             event_ms(lambda: fused(xop), reps=5) / n_it)
 
 
-def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
+def other_backends(g, A, csr, topo, part, b, op_h, x_halo,
+                   emit) -> tuple[int, int]:
     """Phase 5b: the exchange schedules the main path does not take, on
-    its system.  Returns dist_hier_bell's spmv_bell:sell launches."""
+    its system; the (2, 2, 2) tree plan built with ``validate=True``, then
+    audited clean and against a consistent round swap (phase 4f), and
+    dist_hier_bell audited.  Returns dist_hier_bell's spmv_bell:sell
+    launches in its solve and in its audit."""
     import numpy as np
     import torch
+    from repro_torch.core.metrics import tree_comm_volumes
+    from repro_torch.core.topology import canonical_ancestors
     from repro_torch.kernels import _build
     from repro_torch.sparse.operator import make_operator
 
     pods = topo.pod_assignment(2)
+    ancs = {"dist_hier_pods2": pods[None, :],
+            "dist_hier_tree222": canonical_ancestors((2, 2, 2)),
+            "dist_hier_bell_pods2": pods[None, :]}
     cases = (("dist_halo_seq", "dist_halo_seq", {}),
              ("dist_allgather", "dist_allgather", {}),
              ("dist_hier_pods2", "dist_hier", {"pods": pods}),
              ("dist_hier_tree222", "dist_hier", {"fanouts": (2, 2, 2)}),
              ("dist_hier_bell_pods2", "dist_hier_bell", {"pods": pods}))
     xop = op_h.scatter(b)
-    hier_bell = 0
+    hier_bell = audit_hier_bell = 0
     for label, backend, kw in cases:
         torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
+        validate = label == "dist_hier_tree222"
         t0 = time.perf_counter()
-        op = make_operator(*csr, backend, part=part, k=8, **kw)
+        op = make_operator(*csr, backend, part=part, k=8,
+                           validate=validate, **kw)
         torch.cuda.synchronize()
-        plan_s = time.perf_counter() - t0
+        verify_s = (emit_verified(label, op.plan.verify_report, emit)
+                    if validate else 0.0)
+        plan_s = time.perf_counter() - t0 - verify_s
         t0 = time.perf_counter()
         res = op.solve(b, tol=1e-6, max_iters=2000)
         torch.cuda.synchronize()
@@ -1001,7 +1171,8 @@ def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
                   if backend.startswith("dist_hier") else
                   {"S": plan.S, "n_rounds": plan.n_rounds})
         emit(phase="backend", backend=label, plan_build_s=plan_s,
-             solve_s=solve_s, B=plan.B, **levels, iters=iters,
+             verify_s=verify_s, solve_s=solve_s, B=plan.B, **levels,
+             iters=iters,
              rel_residual=rel, agreement_with_dist_halo=agree,
              matvec_ms=mv_ms, iteration_ms=it_ms, iters_timed=40,
              launches=launches,
@@ -1017,9 +1188,17 @@ def other_backends(g, A, csr, topo, part, b, op_h, x_halo, emit) -> int:
               f"{label} launched {launches}")
         if bell:
             hier_bell = launches["spmv_bell:sell"]
+        if label in ("dist_hier_tree222", "dist_hier_bell_pods2"):
+            expect = [float(v.sum()) * 4 for v in tree_comm_volumes(
+                g, part, 8, ancs[label])]
+            sell = audit_phase(label, op, expect, emit, sell=bell)
+            if bell:
+                audit_hier_bell = sell
+            else:
+                drift_check(op, emit)
         del op, plan, res
         torch.cuda.empty_cache()
-    return hier_bell
+    return hier_bell, audit_hier_bell
 
 
 def block_jacobi_phase(args, emit) -> None:

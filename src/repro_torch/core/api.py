@@ -40,8 +40,9 @@ against the tree objective (a cut edge costs ``lams[LCA level]``,
 ancestor table the tree runtime consumes directly
 (``make_operator(..., part=hier_partition)``).
 
-``validate=True`` raises: the partition verifier is ROADMAP.md queue 1
-item 10, not ported yet, and ``REPRO_VALIDATE`` is not read.
+``validate=`` runs the partition verifier (``repro_torch.analysis``,
+PART0xx) on the result of :func:`partition_tree` / :func:`partition_hier`;
+``None`` defers to ``REPRO_VALIDATE``, as in the reference.
 """
 from __future__ import annotations
 
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..analysis import validate_requested, verify_partition
 from ..sparse.graph import Graph
 from .balanced_kmeans import (partition_balanced_kmeans,
                               partition_hierarchical_kmeans)
@@ -226,6 +228,10 @@ class HierPartition:
     lams: tuple = None      # (h,) per-level objective weights
     fanouts: tuple = ()     # (k_1, ..., k_h) of the partitioned tree
     objective: str = "cut"  # which cost model refinement minimized
+    # the ``analysis.Report`` of the ``validate=`` pass (None when
+    # unverified).  A class attribute, not a field: equality and
+    # ``dataclasses.replace`` never see it
+    verify_report = None
 
     def __post_init__(self):
         if self.anc is None:
@@ -304,14 +310,19 @@ def _infer_fanouts(anc: np.ndarray, k: int) -> tuple[int, ...]:
     return tuple(fanouts)
 
 
-def _refuse_validate(validate: bool | None) -> None:
-    """The partition verifier (the reference's ``analysis`` PART0xx checks)
-    is not ported: ``validate=True`` raises, ``None`` and ``False`` run
-    unverified (``REPRO_VALIDATE`` is not read)."""
-    if validate:
-        raise NotImplementedError(
-            "validate=True needs the partition verifier, which is not "
-            "ported yet; see ROADMAP.md queue 1 item 10 (analysis/)")
+def _maybe_verify_partition(res: "HierPartition", n: int,
+                            validate: bool | None) -> "HierPartition":
+    """Structural verification of a partition result
+    (``repro_torch.analysis`` PART0xx).  ``validate=None`` defers to
+    ``REPRO_VALIDATE`` (on in the test suite via conftest).  The report,
+    ``info["seconds"]`` its host time, is kept as ``res.verify_report``."""
+    if validate_requested(validate):
+        t0 = time.perf_counter()
+        rep = verify_partition(res, n)
+        rep.info["seconds"] = time.perf_counter() - t0
+        rep.raise_for_errors()
+        res.verify_report = rep
+    return res
 
 
 def partition_tree(g: Graph, topo: Topology, method: str = "geoRef",
@@ -356,7 +367,6 @@ def partition_tree(g: Graph, topo: Topology, method: str = "geoRef",
     before the objective became selectable.
     """
     device = resolve_device(device)
-    _refuse_validate(validate)
     if objective not in ("cut", "bottleneck"):
         raise ValueError(f"unknown objective {objective!r}")
     if tw is not None:
@@ -401,11 +411,13 @@ def partition_tree(g: Graph, topo: Topology, method: str = "geoRef",
             part = refine_partition(g, part, tw, mems=topo.memories,
                                     eps=eps, objective="bottleneck",
                                     speeds=topo.speeds, c_comp=c_comp)
-        return HierPartition(part=part, tw=tw,
-                             pod_of=np.zeros(topo.k, dtype=np.int64),
-                             lam=lam, anc=np.zeros((0, topo.k), np.int64),
-                             lams=(lams[0],), fanouts=(topo.k,),
-                             objective=objective)
+        return _maybe_verify_partition(
+            HierPartition(part=part, tw=tw,
+                          pod_of=np.zeros(topo.k, dtype=np.int64),
+                          lam=lam, anc=np.zeros((0, topo.k), np.int64),
+                          lams=(lams[0],), fanouts=(topo.k,),
+                          objective=objective),
+            g.n, validate)
 
     # A/B. recurse down the tree: water-fill the level's aggregates, then
     # partition at that granularity and descend into each subtree
@@ -461,9 +473,10 @@ def partition_tree(g: Graph, topo: Topology, method: str = "geoRef",
                                     anc=anc, lams=lams,
                                     objective="bottleneck", speeds=speeds,
                                     c_comp=c_comp)
-    return HierPartition(part=part, tw=tw, pod_of=anc[0], lam=lam,
-                         anc=anc, lams=lams, fanouts=fanouts,
-                         objective=objective)
+    return _maybe_verify_partition(
+        HierPartition(part=part, tw=tw, pod_of=anc[0], lam=lam,
+                      anc=anc, lams=lams, fanouts=fanouts,
+                      objective=objective), g.n, validate)
 
 
 def partition_hier(g: Graph, topo: Topology, method: str = "geoRef",

@@ -307,15 +307,17 @@ class SolverService:
 
     def static_cost(self, indptr, indices, data, nb: int = 1,
                     fingerprint: str | None = None) -> dict:
-        """The reference prices a request by tracing the solver with its
-        jaxpr auditor (``analysis/trace.py``) and running the static
-        roofline of ``launch/roofline.py`` over the count; neither is
-        ported, so this raises."""
+        """The reference prices a request by counting the solver's
+        FLOPs and bytes with its jaxpr auditor (``analysis/trace.py``)
+        and running the static roofline of ``launch/roofline.py`` over
+        the count.  The port's exchange audit (``repro_torch.analysis``)
+        records what an operator exchanges, but neither the count nor the
+        roofline is ported, so this raises."""
         raise NotImplementedError(
-            "SolverService.static_cost needs the trace auditor "
-            "(analysis/trace.py, ROADMAP.md queue 1 item 10) and the "
-            "static roofline (launch/roofline.py, queue 1 item 19), which "
-            "are not ported yet")
+            "SolverService.static_cost: the exchange audit of "
+            "ROADMAP.md queue 1 item 10 is ported (repro_torch.analysis); "
+            "the static FLOP/byte count and roofline of queue 1 item 19 "
+            "(launch/roofline.py) are still missing")
 
     def solve(self, indptr, indices, data, b,
               fingerprint: str | None = None) -> SolveResponse:

@@ -51,11 +51,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
+import types
 from typing import Callable
 
 import numpy as np
 import torch
 
+from ..analysis import validate_requested, verify_plan
 from ..core.refinement import vizing_edge_coloring
 from ..core.topology import normalize_pod_of, normalize_tree_of
 from ..device import resolve_device
@@ -125,6 +128,11 @@ class DistPlan:
     # host intermediates for O(delta) replanning (sparse/replan.py); None
     # on a plan built without a cache
     _replan: object = None
+    # the ``analysis.Report`` of the ``validate=`` pass that built (or
+    # patched) this plan, ``info["seconds"]`` its host time; None when
+    # unverified.  A class attribute, not a field: plan equality and
+    # ``dataclasses.replace`` (a mutated plan) never see it
+    verify_report = None
 
     @property
     def cols_global(self) -> torch.Tensor:
@@ -631,16 +639,34 @@ def _halo_recv_v_pairs(part: np.ndarray, psrc: np.ndarray, dst: np.ndarray,
     return flat[np.argsort(flat // n, kind="stable")], ext_keys
 
 
+def _maybe_verify(fields: dict, validate: bool | None):
+    """Run the structural verifier (``repro_torch.analysis``) on a freshly
+    built or patched plan, given as its *host* arrays — before any field is
+    placed on a device, so a plan bound for the card is never copied back
+    to be checked.  Raises ``analysis.PlanVerificationError`` (a
+    ``ValueError``) naming every violated invariant.  Returns the report,
+    its ``info["seconds"]`` the verifier's host seconds (the builders keep
+    it as ``plan.verify_report``), or None when not asked."""
+    if not validate_requested(validate):
+        return None
+    t0 = time.perf_counter()
+    rep = verify_plan(types.SimpleNamespace(**fields))
+    rep.info["seconds"] = time.perf_counter() - t0
+    rep.raise_for_errors()
+    return rep
+
+
 def build_plan(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
-               part: np.ndarray, k: int, device=None) -> DistPlan:
+               part: np.ndarray, k: int, device=None,
+               validate: bool | None = None) -> DistPlan:
     """Build the distributed plan for matrix (CSR) + partition — vectorized
     host NumPy, copied from the reference and bit-equal to it, with the
     device fields placed on ``device`` (default the card).
 
     O(nnz log nnz) in NumPy kernels (the log from sorts); no Python
-    iteration over vertices, edges, or halo slots.  There is no
-    ``validate=``: the plan verifier is not ported yet (ROADMAP.md queue 1
-    item 10), and ``REPRO_VALIDATE`` is not read.
+    iteration over vertices, edges, or halo slots.  ``validate=`` runs the
+    ``repro_torch.analysis`` structural verifier on the host arrays
+    (default: the ``REPRO_VALIDATE`` environment variable).
     """
     device = resolve_device(device)
     n = len(indptr) - 1
@@ -733,13 +759,17 @@ def build_plan(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,
     bnd_row = split.pop("_bnd_row")
     interior_mask = row_mask * ~bnd_row
 
-    return plan_from_arrays(dict(
+    fields = dict(
         k=k, B=B, S=S, n_rounds=n_rounds, n=n, perm=perm, block_of=block_of,
         sizes=sizes, rows=rows_a, cols=cols_a, vals=vals_a,
         row_mask=row_mask, send_idx=send_idx, send_mask=send_mask,
         round_perms=tuple(tuple(r) for r in round_perms),
         interior_mask=interior_mask, **split,
-        _pack_blk=own, _pack_pos=pos_edge, _pack_dst=dst), device)
+        _pack_blk=own, _pack_pos=pos_edge, _pack_dst=dst)
+    report = _maybe_verify(fields, validate)
+    plan = plan_from_arrays(fields, device)
+    plan.verify_report = report
+    return plan
 
 
 def build_plan_reference(indptr: np.ndarray, indices: np.ndarray,
@@ -998,7 +1028,8 @@ def _derive_tree_fields(rows_a: np.ndarray, cols_a: np.ndarray,
 def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
                     data: np.ndarray, part: np.ndarray,
                     tree, k: int, fanouts=None,
-                    device=None, cache: bool = True) -> TreePlan:
+                    device=None, cache: bool = True,
+                    validate: bool | None = None) -> TreePlan:
     """Build the arbitrary-depth distributed plan for a tree mesh.
 
     ``tree`` is anything ``core.topology.normalize_tree_of`` accepts: a
@@ -1022,8 +1053,9 @@ def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
     bit-equal to it; the device fields go to ``device`` (default the
     card).  ``cache=True`` keeps the host intermediates that
     :func:`.replan.apply_edge_delta` patches in O(delta) (``plan._replan``;
-    None for a non-canonical CSR).  The reference's ``validate=`` is not
-    ported (ROADMAP.md queue 1 item 10).
+    None for a non-canonical CSR).  ``validate=`` as in :func:`build_plan`
+    (the host arrays and the replan cache, PLAN010 included, are verified
+    before any field is placed).
     """
     device = resolve_device(device)
     n = len(indptr) - 1
@@ -1135,23 +1167,28 @@ def build_plan_tree(indptr: np.ndarray, indices: np.ndarray,
             slot_of_trip=slot_of_trip, offs=offs,
             rows_a=rows_a, cols_a=cols_a, vals_a=vals_a,
             per_blk=per_blk, pos_edge=pos_edge,
-            row_mask=row_mask, host=host_split)
+            row_mask=row_mask, host=host_split,
+            send_idx_lvl=si_lvl, send_mask_lvl=sm_lvl)
 
-    plan = tree_plan_from_arrays(dict(
+    fields = dict(
         k=k, B=B, S=max(S_lvl), n_rounds=sum(R_lvl), n=n, perm=perm,
         block_of=block_of, sizes=sizes, rows=rows_a, cols=cols_a,
         vals=vals_a, row_mask=row_mask, interior_mask=interior_mask,
         **split, fanouts=fanouts_out, anc=anc_dev, block_map=block_map,
         S_lvl=S_lvl, n_rounds_lvl=R_lvl, send_idx_lvl=si_lvl,
         send_mask_lvl=sm_lvl, round_perms_lvl=perms_lvl,
-        _pack_blk=own, _pack_pos=pos_edge, _pack_dst=dst), device)
+        _pack_blk=own, _pack_pos=pos_edge, _pack_dst=dst)
+    report = _maybe_verify(dict(fields, _replan=replan_cache), validate)
+    plan = tree_plan_from_arrays(fields, device)
     plan._replan = replan_cache
+    plan.verify_report = report
     return plan
 
 
 def build_plan_hier(indptr: np.ndarray, indices: np.ndarray,
                     data: np.ndarray, part: np.ndarray,
-                    pods, k: int, device=None) -> TreePlan:
+                    pods, k: int, device=None,
+                    validate: bool | None = None) -> TreePlan:
     """Build the two-level distributed plan for a multi-pod mesh — the
     ``h == 2`` instance of :func:`build_plan_tree`.
 
@@ -1168,7 +1205,8 @@ def build_plan_hier(indptr: np.ndarray, indices: np.ndarray,
     # one validation definition shared with the partitioner side
     pod_of_block = normalize_pod_of(pods, k)
     return build_plan_tree(indptr, indices, data, part,
-                           pod_of_block[None, :], k, device=device)
+                           pod_of_block[None, :], k, device=device,
+                           validate=validate)
 
 
 # --------------------------------------------------------------------------
@@ -1202,15 +1240,20 @@ def _make_exchange(plan: DistPlan) -> Callable:
     """``x (k, B[, nb]) -> x_ext (k, W[, nb])``: x followed by every
     round's received slots, level by level for a :class:`TreePlan` (``[x |
     level-0 slots | ... | level-(h-1) slots]``), in the reference's slot
-    layout."""
+    layout.
+
+    The closure keeps its slot layout, ``exchange.layout``: per level with
+    slots, ``(level, first slot column, rounds, slots per round)`` — what
+    the exchange audit (``repro_torch.analysis.trace``) decodes a probe's
+    received slots with."""
     k = plan.k
     if isinstance(plan, TreePlan):
         levels = zip(plan.send_idx_lvl, plan.send_mask_lvl,
                      plan.round_perms_lvl, plan.level_sizes())
     else:
         levels = [(plan.send_idx, plan.send_mask, plan.round_perms, k)]
-    tables = []
-    for send_idx, send_mask, perms, size in levels:
+    tables, layout, off = [], [], plan.B
+    for lvl, (send_idx, send_mask, perms, size) in enumerate(levels):
         R, S = send_idx.shape[1:]
         if R * S == 0:                  # a level with no rounds: no slots
             continue
@@ -1219,6 +1262,8 @@ def _make_exchange(plan: DistPlan) -> Callable:
         tables.append((send_idx.long().reshape(k, R * S), send_mask, src_of,
                        recv_mask[:, :, None],
                        torch.arange(R, device=plan.device)[:, None]))
+        layout.append((lvl, off, R, S))
+        off += R * S
 
     def exchange(x):
         parts = [x]
@@ -1233,6 +1278,7 @@ def _make_exchange(plan: DistPlan) -> Callable:
             parts.append(recv.transpose(0, 1).reshape((k, -1) + cols))
         return torch.cat(parts, dim=1)
 
+    exchange.layout = tuple(layout)
     return exchange
 
 
@@ -1284,7 +1330,9 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
     """y = A @ x on (k, B) stacked block-major vectors, under the exchange
     schedule ``comm`` (see the module docstring) with the interior matvec
     in ``local_format``.  Index tensors are flattened over the block axis
-    once, here."""
+    once, here.  The returned callable carries ``comm`` and its
+    ``exchange`` (None under ``allgather``, whose flat padded-global COO
+    is ``gathered``) for the exchange audit."""
     _check_modes(plan, comm, local_format)
     k, B = plan.k, plan.B
     row_mask = plan.row_mask
@@ -1296,6 +1344,7 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
         return torch.zeros((k * B,) + tuple(x.shape[2:]), dtype=x.dtype,
                            device=x.device)
 
+    exchange = coo = None
     if comm == "allgather":
         # the gathered (k*B,) vector is the stacked tensor itself
         coo = _flat_coo(plan.rows, plan.cols_global, plan.vals, B, 0)
@@ -1347,7 +1396,9 @@ def make_dist_spmv(plan: DistPlan, comm: str = "halo",
         return fn(x).view(x.shape) * _bcol(row_mask, x)
 
     matvec.batch_native = True
-
+    matvec.comm = comm
+    matvec.exchange = exchange
+    matvec.gathered = coo
     return matvec
 
 

@@ -200,12 +200,13 @@ class DistributedOperator:
     @classmethod
     def from_csr(cls, indptr, indices, data, part, k, comm: str = "halo",
                  local_format: str = "coo", pods=None, fanouts=None,
-                 tree=None, device=None):
+                 tree=None, device=None, validate: bool | None = None):
         """``comm='hier'`` builds the tree plan — ``pods`` (pod count or
         explicit (k,) pod-of-block array) for the two-level instance,
         ``fanouts`` / ``tree`` ((k_1, ..., k_h) tuple / explicit (h-1, k)
         ancestor table) for any depth; every other ``comm`` the flat
-        plan."""
+        plan.  ``validate`` goes to ``build_plan`` / ``build_plan_tree``
+        (None: the ``REPRO_VALIDATE`` environment variable)."""
         if comm == "hier":
             if pods is None and fanouts is None and tree is None:
                 raise ValueError(
@@ -216,12 +217,14 @@ class DistributedOperator:
                 raise ValueError("pass either pods= or tree=, not both")
             plan = build_plan_tree(indptr, indices, data, part,
                                    pods if pods is not None else tree,
-                                   k, fanouts=fanouts, device=device)
+                                   k, fanouts=fanouts, device=device,
+                                   validate=validate)
         else:
             if pods is not None or fanouts is not None or tree is not None:
                 raise ValueError("pods=/fanouts=/tree= only apply to "
                                  "comm='hier'")
-            plan = build_plan(indptr, indices, data, part, k, device=device)
+            plan = build_plan(indptr, indices, data, part, k, device=device,
+                              validate=validate)
         return cls(plan=plan, comm=comm, local_format=local_format)
 
     @property

@@ -23,9 +23,10 @@ patches an existing plan instead:
   copy).
 
 The contract is bit-level: ``apply_edge_delta(plan, delta)`` equals
-``build_plan_tree`` on the merged CSR field by field.  The reference's
-``validate=`` (the plan verifier) is not ported (ROADMAP.md queue 1 item
-10).
+``build_plan_tree`` on the merged CSR field by field.  ``validate=`` runs
+the plan verifier (``repro_torch.analysis``) on the patched plan as
+``build_plan_tree`` does: on its host arrays (the cache's mirrors),
+before the changed arrays are uploaded.
 """
 from __future__ import annotations
 
@@ -301,6 +302,10 @@ class ReplanCache:
     diag_b: np.ndarray
     diag_e: np.ndarray
     diag_row: np.ndarray        # rows_a[diag_b, diag_e], precomputed
+    # host mirrors of the per-level send schedules (what the verifier
+    # reads, so a plan on the card is checked without copying it back)
+    send_idx_lvl: tuple = ()
+    send_mask_lvl: tuple = ()
 
     @property
     def h(self) -> int:
@@ -315,7 +320,8 @@ def capture_replan_cache(*, indptr, indices, data, src, part, order,
                          rank_in_block, sizes, B, k, n, fanouts, suffix,
                          flat, o2, ext, ext_keys, psrc, t_pair, t_v, t_lvl,
                          slot_of_trip, offs, rows_a, cols_a, vals_a,
-                         per_blk, pos_edge, row_mask, host):
+                         per_blk, pos_edge, row_mask, host, send_idx_lvl,
+                         send_mask_lvl):
     """Build a :class:`ReplanCache` from ``build_plan_tree`` internals.
 
     Returns None for a non-canonical CSR (unsorted or duplicate entries
@@ -353,7 +359,30 @@ def capture_replan_cache(*, indptr, indices, data, src, part, order,
         int_seg=host["int_seg"], lvl_segs=list(host["lvl_segs"]),
         diag=host["diag"], diag_b=host["diag_b"], diag_e=host["diag_e"],
         diag_row=rows_a[host["diag_b"], host["diag_e"]],
+        send_idx_lvl=tuple(send_idx_lvl), send_mask_lvl=tuple(send_mask_lvl),
     )
+
+
+def _host_fields(plan, cache: ReplanCache, S_lvl, n_rounds_lvl,
+                 round_perms_lvl) -> dict:
+    """The patched plan's fields as the host arrays ``cache`` mirrors —
+    what :func:`.distributed._maybe_verify` checks before the upload."""
+    int_r, int_c, int_v = cache.int_seg
+    return dict(
+        k=plan.k, B=plan.B, n=plan.n, S=max(S_lvl),
+        n_rounds=sum(n_rounds_lvl), perm=plan.perm, sizes=plan.sizes,
+        nnz_blk=cache.per_blk, rows=cache.rows_a, cols=cache.cols_a,
+        vals=cache.vals_a, row_mask=cache.row_mask,
+        interior_mask=cache.row_mask * ~(cache.row_lvl >= 0),
+        rows_int=int_r, cols_int=int_c, vals_int=int_v,
+        rows_bnd_lvl=tuple(seg[0] for seg in cache.lvl_segs),
+        cols_bnd_lvl=tuple(seg[1] for seg in cache.lvl_segs),
+        vals_bnd_lvl=tuple(seg[2] for seg in cache.lvl_segs),
+        fanouts=plan.fanouts, anc=plan.anc, S_lvl=tuple(S_lvl),
+        n_rounds_lvl=tuple(n_rounds_lvl),
+        send_idx_lvl=cache.send_idx_lvl, send_mask_lvl=cache.send_mask_lvl,
+        round_perms_lvl=tuple(round_perms_lvl), _pack_blk=cache.own,
+        _pack_pos=cache.pos_edge, _pack_dst=cache.indices, _replan=cache)
 
 
 def _recompute_diag_rows(diag2, cache, blk, row, vals_host):
@@ -368,11 +397,11 @@ def _recompute_diag_rows(diag2, cache, blk, row, vals_host):
     np.add.at(diag2, (db, cache.diag_row[sel]), vals_host[db, de])
 
 
-def _patch_values(plan, cache: ReplanCache, m: _Merge):
+def _patch_values(plan, cache: ReplanCache, m: _Merge, validate):
     """Reweight-only fast path: no structure changed, so every packed
     position, slot map, schedule and segment layout is reused; only the
     value arrays (and the diagonal rows hit) are patched."""
-    from .distributed import _tensor
+    from .distributed import _maybe_verify, _tensor
 
     def upload(a):
         return _tensor(a, plan.device)
@@ -386,26 +415,21 @@ def _patch_values(plan, cache: ReplanCache, m: _Merge):
     slvl = cache.seg_lvl[blk, pos]
     spos = cache.seg_pos[blk, pos]
     int_r, int_c, int_v = cache.int_seg
-    sel = slvl == -1
-    if sel.any():
+    int_hit = (slvl == -1).any()
+    if int_hit:
+        sel = slvl == -1
         int_v = int_v.copy()
         int_v[blk[sel], spos[sel]] = rw32[sel]
-        vals_int_j = upload(int_v)
-    else:
-        vals_int_j = plan.vals_int
-    lvl_segs2, vals_bnd_j = [], []
+    lvl_segs2, lvl_hit = [], []
     for l, (r_, c_, v_) in enumerate(cache.lvl_segs):
         sel = slvl == l
-        if sel.any():
+        lvl_hit.append(bool(sel.any()))
+        if lvl_hit[-1]:
             v_ = v_.copy()
             v_[blk[sel], spos[sel]] = rw32[sel]
-            vals_bnd_j.append(upload(v_))
-        else:
-            vals_bnd_j.append(plan.vals_bnd_lvl[l])
         lvl_segs2.append((r_, c_, v_))
 
     diag2 = cache.diag
-    diag_j = plan.diag
     is_diag = (cache.keys[m.rw_pos] % cache.n
                == cache.keys[m.rw_pos] // cache.n)
     if is_diag.any():
@@ -413,23 +437,31 @@ def _patch_values(plan, cache: ReplanCache, m: _Merge):
         _recompute_diag_rows(diag2, cache, blk[is_diag],
                              cache.rows_a[blk[is_diag], pos[is_diag]],
                              vals_a)
-        diag_j = upload(diag2)
 
     cache2 = dataclasses.replace(
         cache, data=m.data2, vals_a=vals_a,
         int_seg=(int_r, int_c, int_v), lvl_segs=lvl_segs2, diag=diag2)
-    return dataclasses.replace(
+    report = _maybe_verify(_host_fields(plan, cache2, plan.S_lvl,
+                                        plan.n_rounds_lvl,
+                                        plan.round_perms_lvl), validate)
+    vals_int_j = upload(int_v) if int_hit else plan.vals_int
+    vals_bnd_j = [upload(seg[2]) if hit else old for seg, hit, old in
+                  zip(lvl_segs2, lvl_hit, plan.vals_bnd_lvl)]
+    diag_j = upload(diag2) if is_diag.any() else plan.diag
+    out = dataclasses.replace(
         plan, vals=upload(vals_a), vals_int=vals_int_j,
         vals_bnd_lvl=tuple(vals_bnd_j), diag=diag_j,
         _bell={}, _bj_inv=None, _replan=cache2)
+    out.verify_report = report
+    return out
 
 
-def _patch_structure(plan, cache: ReplanCache, m: _Merge):
+def _patch_structure(plan, cache: ReplanCache, m: _Merge, validate):
     """Insert/remove path.  Work scales with the delta plus the size of
     the *affected blocks* (blocks that gained or lost entries) plus a few
     O(nnz) memcpy/scatter passes — never with a full re-extraction."""
     from .distributed import (_class_schedule, _derive_tree_fields_np,
-                              _tensor)
+                              _maybe_verify, _tensor)
 
     def upload(a):
         return _tensor(a, plan.device)
@@ -516,8 +548,8 @@ def _patch_structure(plan, cache: ReplanCache, m: _Merge):
     changed_lvls = np.unique(np.concatenate([drop_lvls, nlvl]))
     S_lvl2 = list(plan.S_lvl)
     R_lvl2 = list(plan.n_rounds_lvl)
-    si2 = list(plan.send_idx_lvl)
-    sm2 = list(plan.send_mask_lvl)
+    si_h = list(cache.send_idx_lvl)
+    sm_h = list(cache.send_mask_lvl)
     perms2 = list(plan.round_perms_lvl)
     rel_slot2 = np.empty(T2, dtype=np.int32)
     rel_slot2[pos_old] = cache.rel_slot[old_idx]
@@ -530,7 +562,7 @@ def _patch_structure(plan, cache: ReplanCache, m: _Merge):
             t_pair2[sel], t_v2[sel], k, dev % sz, sz, cache.rank_in_block)
         rel_slot2[sel] = slot
         S_lvl2[l], R_lvl2[l] = S_l, R_l
-        si2[l], sm2[l] = upload(si), upload(sm)
+        si_h[l], sm_h[l] = si, sm
         perms2[l] = perms
     offs2 = B + np.concatenate(
         [[0], np.cumsum([r * s for r, s in zip(R_lvl2, S_lvl2)])]).astype(int)
@@ -685,9 +717,17 @@ def _patch_structure(plan, cache: ReplanCache, m: _Merge):
         seg_lvl=seg_lvl2, seg_pos=seg_pos2, seg_counts=seg_counts2,
         row_lvl=row_lvl2, int_seg=tuple(int_seg2),
         lvl_segs=[tuple(s) for s in lvl_segs2],
-        diag=diag2, diag_b=db2, diag_e=de2, diag_row=diag_row2)
+        diag=diag2, diag_b=db2, diag_e=de2, diag_row=diag_row2,
+        send_idx_lvl=tuple(si_h), send_mask_lvl=tuple(sm_h))
+    report = _maybe_verify(_host_fields(plan, cache2, S_lvl2, R_lvl2,
+                                        perms2), validate)
 
-    return dataclasses.replace(
+    changed = set(changed_lvls.tolist())
+    si2 = [upload(si_h[l]) if l in changed else plan.send_idx_lvl[l]
+           for l in range(h)]
+    sm2 = [upload(sm_h[l]) if l in changed else plan.send_mask_lvl[l]
+           for l in range(h)]
+    out = dataclasses.replace(
         plan,
         S=max(S_lvl2), n_rounds=sum(R_lvl2),
         rows=upload(rows_a2), cols=upload(cols_a2),
@@ -705,9 +745,11 @@ def _patch_structure(plan, cache: ReplanCache, m: _Merge):
         round_perms_lvl=tuple(perms2),
         _pack_blk=own2, _pack_pos=pos_edge2, _pack_dst=m.indices2,
         _cols_global=None, _bell={}, _bj_inv=None, _replan=cache2)
+    out.verify_report = report
+    return out
 
 
-def apply_edge_delta(plan, delta: EdgeDelta):
+def apply_edge_delta(plan, delta: EdgeDelta, validate=None):
     """Patch ``plan`` (a cached :class:`TreePlan`) for ``delta``.
 
     Returns a new plan bit-equal to ``build_plan_tree`` on the merged
@@ -715,7 +757,8 @@ def apply_edge_delta(plan, delta: EdgeDelta):
     deltas touch O(delta) entries plus a few value-array memcpys and
     uploads; structural deltas re-extract only the blocks that gained/lost
     entries and re-color only the tree levels whose halo triple set
-    changed.
+    changed.  ``validate`` as in ``build_plan_tree`` (None -> the
+    ``REPRO_VALIDATE`` environment variable).
     """
     cache = getattr(plan, "_replan", None)
     if cache is None:
@@ -728,8 +771,8 @@ def apply_edge_delta(plan, delta: EdgeDelta):
     m = _merge_csr(cache.indptr, cache.indices, cache.data, cache.keys,
                    delta)
     if not m.structural:
-        return _patch_values(plan, cache, m)
-    return _patch_structure(plan, cache, m)
+        return _patch_values(plan, cache, m, validate)
+    return _patch_structure(plan, cache, m, validate)
 
 
 def migrate_state(old_plan, new_plan, *arrays):
