@@ -96,8 +96,9 @@ Phases (any failure exits non-zero and prints no result line):
      (wgmma + TMA), f32 and bf16 with head dim 16 or 80 to flash (mma.sync
      + cp.async; bf16, and f32 as 3xTF32); the reference test shapes,
      every head dim in both of flash's dtypes, causal and not, GQA, Sq !=
-     Sk, S below one tile and off a tile multiple, stablelm-3b's prefill
-     shape and the float32 shapes of phase 8; and show that the LM's causal
+     Sk, S below one tile and off a tile multiple, the MoE prefill shapes
+     (olmoe, granite), stablelm-3b's prefill shape and the float32 shapes
+     of phase 8; and show that the LM's causal
      attention reaches flash at a length that is not a tile multiple;
   7. LM serving at the full width of qwen1.5-0.5b (random weights from a
      seed): batch 8, prompt 2048, 32 generated tokens through
@@ -107,16 +108,41 @@ Phases (any failure exits non-zero and prints no result line):
   7b. the same at the full width and depth of stablelm-3b (head dim 80,
      layernorm), the path of flash in bf16: the prefill must launch flash
      once per layer and flash_sm90 never, the decode loop neither;
+  7c. MoE serving at the full width and depth of olmoe-1b-7b (64 experts
+     top-8, head dim 128), as phase 7: 16 flash_sm90 launches per prefill,
+     flash never, the decode loop neither; the dispatch capacities and the
+     bytes every decode step reads (the grouped dispatch multiplies every
+     expert);
+  7d. the same for granite-moe-1b-a400m (32 experts top-8, 16 heads over 8
+     KV heads at head dim 64, tied embeddings): 24 flash_sm90 launches per
+     prefill;
+  7f. one MoE layer of each of the two at full width, bf16: the time of
+     each stage of ``moe_forward`` (router, slots, dispatch, experts,
+     combine) at the prefill and the decode shape, the experts' bound;
   8. whole-model consistency in float32: last-token logits of a 2048-token
      prefill (flash attention) against a 1920-token prefill plus 128
      teacher-forced decode steps (plain decode attention), within 1e-3 of
      the largest |logit|; the counts are reset just before and read just
      after, and this path must launch flash (the f32 route), never
      flash_sm90;
+  8b. the same for granite-moe-1b-a400m in float32 at full width and
+     depth with ``moe_capacity = E / K`` (nothing drops on either path):
+     48 flash launches, flash_sm90 never; the tokens whose top-k experts
+     differ between the paths are counted per layer;
+  7e. LDHT expert placement on that float32 model: per-layer router counts
+     and co-activation from one 2048-token row of the serving prompts,
+     ``place_experts`` onto four EP ranks (one at speed 2.0), every
+     layer's experts permuted in place; last-token prefill logits placed
+     against unplaced within 1e-5 of the largest |logit|; Eq. 2 max
+     load/speed and the co-activation cut against the contiguous
+     placement, the host seconds of ``coactivation_graph`` and
+     ``place_experts``;
   9. each flash kernel at the shapes its paths give it (flash_sm90: qwen's
-     prefill in bf16; flash: stablelm-3b's prefill in bf16 and phase 8's
-     float32 prefill) beside its plain version, SDPA and its bound; peak
-     device memory; then the ``{"kernels": [...]}`` line;
+     prefill in bf16, nested: olmoe's prefill at head dim 128 and
+     granite's launches; flash: stablelm-3b's prefill in bf16 and phase
+     8's float32 prefill, nested: 8b's launches) beside its plain version,
+     SDPA and its bound; peak device memory; then the ``{"kernels":
+     [...]}`` line;
  10. last line: ``{"ok": true, "device": {...}}``.
 
 Numbers are JSON lines tagged with the card's name and power limit.
@@ -659,6 +685,210 @@ def stage_clock(stages: list):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def routing_recorder(calls: list):
+    """Record the router's top-k expert ids (``mlp.route``) of every MoE
+    layer call while the block runs: ``transformer.moe_forward`` is
+    wrapped, so each call appends its (B, S, K) ids, in layer order, and
+    then runs as before.  The wrapper is removed on exit."""
+    from repro_torch.models import transformer
+    from repro_torch.models.mlp import route
+    fn = transformer.moe_forward
+
+    def wrapper(p, x, *, top_k, **kw):
+        calls.append(route(p, x, top_k)[2])
+        return fn(p, x, top_k=top_k, **kw)
+
+    transformer.moe_forward = wrapper
+    try:
+        yield calls
+    finally:
+        transformer.moe_forward = fn
+
+
+def moe_stage_phase(dev, gen, emit, S: int) -> None:
+    """Phase 7f: one MoE layer of olmoe-1b-7b and of granite-moe-1b-a400m
+    at full width in bf16 (random weights and a unit-normal input from
+    ``gen``), at the prefill shape (batch 8, S tokens, the config's
+    capacity) and the decode shape (batch 8, one token, capacity 2.0):
+    the CUDA-event time of each stage of ``moe_forward`` (router, slots,
+    dispatch, experts, combine) and of the whole, beside the experts'
+    bound and the share of the slots that routed entries fill."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import mlp
+    from repro_torch.models.common import ParamInit
+
+    bf16 = torch.bfloat16
+    for arch in ("olmoe-1b-7b", "granite-moe-1b-a400m"):
+        cfg = get_config(arch)
+        E, K, D, Fx = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_expert
+        moe = mlp.init_moe(ParamInit(gen, bf16, dev), D, E, Fx,
+                           cfg.activation)
+        for label, s, cf in (("prefill", S, cfg.moe_capacity),
+                             ("decode", 1, 2.0)):
+            B = 8
+            x = torch.randn((B, s, D), generator=gen, device=dev).to(bf16)
+            C = mlp.capacity(s, E, K, cf)
+            probs, gates, ids = mlp.route(moe, x, K)
+            flat_e, slot, keep = mlp.assign_slots(ids, E, C)
+            gflat = (gates / gates.sum(-1, keepdim=True)).reshape(B, -1) \
+                * keep
+            disp = mlp.dispatch(x, flat_e, slot, keep, E, C)
+            eout = mlp.expert_ffn(moe, disp, cfg.activation)
+            ms = dict(
+                route=event_ms(lambda: mlp.route(moe, x, K)),
+                slots=event_ms(lambda: mlp.assign_slots(ids, E, C)),
+                dispatch=event_ms(lambda: mlp.dispatch(x, flat_e, slot,
+                                                       keep, E, C)),
+                experts=event_ms(lambda: mlp.expert_ffn(moe, disp,
+                                                        cfg.activation)),
+                combine=event_ms(lambda: mlp.combine(eout, flat_e, slot,
+                                                     gflat, s)),
+                moe_forward=event_ms(lambda: mlp.moe_forward(
+                    moe, x, n_experts=E, top_k=K, activation=cfg.activation,
+                    capacity_factor=cf)))
+            # the experts multiply every slot, filled or not; the routed
+            # entries need the kept share of that
+            flops = 2 * 3 * E * B * C * D * Fx
+            nbytes = 2 * (3 * E * D * Fx + 2 * E * B * C * D)
+            bound, by = bound_ms(nbytes, flops, "bfloat16")
+            kept = int(keep.sum())
+            emit(phase="moe_stages", arch=cfg.name, shape=label, batch=B,
+                 tokens=s, capacity=C, capacity_factor=cf, stage_ms=ms,
+                 stage_sum_ms=sum(v for k, v in ms.items()
+                                  if k != "moe_forward"),
+                 layers=cfg.n_layers,
+                 moe_forward_ms_all_layers=ms["moe_forward"] * cfg.n_layers,
+                 experts_bound_ms=bound, experts_bound_by=by,
+                 experts_flops=flops, kept_entries=kept,
+                 dropped_entries=B * s * K - kept,
+                 slot_fill=kept / (E * B * C))
+            del x, probs, gates, ids, flat_e, slot, keep, gflat, disp, eout
+        del moe
+        torch.cuda.empty_cache()
+
+
+def moe_f32_phases(args, dev, emit, S: int) -> dict:
+    """Phases 8b and 7e on granite-moe-1b-a400m at full width and depth in
+    float32 (one model, random weights from the seed).  Returns the flash
+    launches of 8b's two prefills."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.expert_placement import (coactivation_graph,
+                                                   expert_loads,
+                                                   permute_expert_params,
+                                                   place_experts)
+    from repro_torch.core.topology import PU, Topology
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import (decode_step, init_model,
+                                                prefill_forward)
+
+    cfg = get_config("granite-moe-1b-a400m")
+    E, K, L = cfg.n_experts, cfg.top_k, cfg.n_layers
+    # ---- 8b. prefill against prefill + decode, nothing dropped -----------
+    # moe_capacity = E / K gives C >= S in every group, so both paths keep
+    # every (token, k) entry (at 1.25 they drop different ones)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", moe_capacity=E / K)
+    model = init_model(cfg32, seed=args.seed, device=dev)
+    n_dec = 128
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 2).integers(
+        0, cfg.vocab, size=(4, S), dtype=np.int32)).to(dev)
+    full_ids, dec_ids = [], []
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with routing_recorder(full_ids):
+        full, _ = prefill_forward(model, cfg32, toks, cache_len=S)
+    with routing_recorder(dec_ids):
+        logits, cache = prefill_forward(model, cfg32, toks[:, :S - n_dec],
+                                        cache_len=S)
+        for t in range(S - n_dec, S):
+            logits, cache = decode_step(model, cfg32, cache,
+                                        toks[:, t:t + 1], t)
+    launches = _build.launches()
+    seconds = time.perf_counter() - t0
+    scale = float(full.abs().max())
+    rel = float((full - logits).abs().max()) / scale
+    # per layer: tokens whose set of K experts differs between the paths
+    # (a router near-tie that the two attention routes resolve apart)
+    flips = []
+    for layer in range(L):
+        steps = dec_ids[layer::L]
+        a = full_ids[layer].sort(-1).values
+        b = torch.cat(steps, dim=1).sort(-1).values
+        flips.append(int((a != b).any(-1).sum()))
+    emit(phase="moe_consistency_f32", arch=cfg.name, batch=4, prefill=S,
+         prefill_then_decode=[S - n_dec, n_dec], moe_capacity=E / K,
+         max_abs_logit=scale, rel_err=rel, tol=1e-3,
+         router_flips_per_layer=flips, launches=launches, seconds=seconds)
+    del cache, full, logits, full_ids, dec_ids
+    check(rel < 1e-3, f"{cfg.name} f32 prefill vs prefill+decode logits "
+                      f"differ by {rel} of the largest |logit| (router "
+                      f"flips per layer: {flips})")
+    check(launches["flash"] == 2 * L and launches["flash_sm90"] == 0,
+          f"the {cfg.name} f32 prefills launched {launches}, want flash "
+          f"{2 * L} times and flash_sm90 never")
+
+    # ---- 7e. LDHT placement at full width ---------------------------------
+    # router statistics of one 2048-token row of the serving prompts, every
+    # layer's experts placed on four EP ranks (one at speed 2.0), then the
+    # model permuted in place: the same logits at the config's capacity
+    cfg_p = dataclasses.replace(cfg, dtype="float32")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, size=(8, S),
+                                                dtype=np.int32)
+    ids = []
+    with routing_recorder(ids):
+        prefill_forward(model, cfg_p, torch.from_numpy(prompts[:1]).to(dev))
+    ids = [i.reshape(-1, K).cpu().numpy() for i in ids]
+    batch = torch.from_numpy(prompts[:4]).to(dev)
+    before, _ = prefill_forward(model, cfg_p, batch)
+    ep = 4
+    topo = Topology(pus=[PU(speed=2.0, memory=1e9)]
+                    + [PU(speed=1.0, memory=1e9) for _ in range(ep - 1)])
+    contiguous = np.arange(E) // (E // ep)
+    rows = []
+    t_coact = t_place = 0.0
+    for layer, lid in zip(model.layers, ids):
+        loads = expert_loads(np.bincount(lid.ravel(), minlength=E))
+        t0 = time.perf_counter()
+        W = coactivation_graph(lid, E)
+        t1 = time.perf_counter()
+        res = place_experts(loads, topo, coact=W)
+        t_place += time.perf_counter() - t1
+        t_coact += t1 - t0
+        check(sorted(res.perm.tolist()) == list(range(E))
+              and (np.bincount(res.rank_of, minlength=ep) == E // ep).all(),
+              "place_experts returned no valid placement")
+        rows.append((res.max_load_ratio,
+                     float((np.bincount(contiguous, weights=loads)
+                            / topo.speeds).max()),
+                     res.coact_cut,
+                     float(W[contiguous[:, None] != contiguous[None, :]]
+                           .sum())))
+        permute_expert_params(layer.ffn, res.perm)
+    after, _ = prefill_forward(model, cfg_p, batch)
+    scale = float(before.abs().max())
+    rel = float((after - before).abs().max()) / scale
+    r = np.array(rows)
+    emit(phase="moe_placement", arch=cfg.name, calibration_tokens=S,
+         ep_ranks=ep, speeds=topo.speeds.tolist(), layers=L,
+         eq2_max_load_ratio=dict(mean=float(r[:, 0].mean()),
+                                 max=float(r[:, 0].max())),
+         eq2_contiguous=dict(mean=float(r[:, 1].mean()),
+                             max=float(r[:, 1].max())),
+         coact_cut=dict(mean=float(r[:, 2].mean()), max=float(r[:, 2].max())),
+         coact_cut_contiguous=dict(mean=float(r[:, 3].mean()),
+                                   max=float(r[:, 3].max())),
+         coactivation_graph_s=t_coact, place_experts_s=t_place,
+         logits_batch=4, max_abs_logit=scale, rel_err=rel, tol=1e-5)
+    check(rel < 1e-5, f"placed logits differ from the unplaced ones by "
+                      f"{rel} of the largest |logit|")
+    del model, before, after
+    torch.cuda.empty_cache()
+    return dict(launches=launches["flash"], launches_path="moe_consistency_f32")
 
 
 def cap_report(sizes, start_sizes, tw, mems) -> dict:
@@ -1500,9 +1730,10 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, sell_err,
 
 def lm_path(args, dev, gen, emit) -> list[dict]:
     """Phases 6-9: both flash kernels against their plain version, LM
-    serving at the full width of qwen1.5-0.5b and of stablelm-3b, float32
-    prefill/decode consistency, the flash kernels' numbers.  Returns their
-    two rows."""
+    serving at the full width of qwen1.5-0.5b, stablelm-3b, olmoe-1b-7b
+    and granite-moe-1b-a400m, float32 prefill/decode consistency (dense
+    and MoE), LDHT expert placement, the flash kernels' numbers.  Returns
+    their two rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1513,6 +1744,7 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.kernels.ref import flash_attention_ref
     from repro_torch.launch.serve import serve_tokens
     from repro_torch.models.attention import gqa_attend
+    from repro_torch.models.mlp import capacity
     from repro_torch.models.transformer import (decode_step, init_model,
                                                 prefill_forward)
 
@@ -1539,6 +1771,10 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     f32, bf16 = torch.float32, torch.bfloat16
     cfg_sl = get_config("stablelm-3b")
     H_sl, D_sl = cfg_sl.n_heads, cfg_sl.head_dim
+    cfg_ol = get_config("olmoe-1b-7b")
+    H_ol, D_ol = cfg_ol.n_heads, cfg_ol.head_dim
+    cfg_gr = get_config("granite-moe-1b-a400m")
+    H_gr, Hkv_gr, D_gr = cfg_gr.n_heads, cfg_gr.n_kv_heads, cfg_gr.head_dim
     cases = [  # (b, h, hkv, sq, sk, d, causal, dtype)
         (2, 4, 4, 256, 256, 64, True, f32),
         (1, 2, 2, 128, 128, 64, True, f32),
@@ -1569,6 +1805,9 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         (1, 4, 4, 64, 64, 64, True, bf16),
         (1, 4, 4, 64, 64, 128, True, bf16),
         (B, H, H, S, S, D, True, bf16),
+        # the MoE prefills: olmoe (head dim 128), granite (GQA 16 / 8)
+        (B, H_ol, H_ol, S, S, D_ol, True, bf16),
+        (B, H_gr, Hkv_gr, S, S, D_gr, True, bf16),
         # stablelm-3b's prefill, flash's bf16 path
         (B, H_sl, H_sl, S, S, D_sl, True, bf16),
         # phase 8's float32 prefills, flash's f32 path
@@ -1643,6 +1882,24 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         peak = torch.cuda.max_memory_allocated()
         ids = r["tokens"][:, S:]
         finite = bool(torch.isfinite(r["logits"].float()).all())
+        moe = {}
+        if cfg.family == "moe":
+            # the grouped dispatch multiplies every expert each decode
+            # step, so a step reads every weight but the embedding rows
+            # it does not gather (bf16, ModelConfig.param_count): its
+            # floor at the HBM rate
+            emb = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+            step_bytes = (cfg.param_count - emb) * 2
+            expert_bytes = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model
+                            * cfg.d_expert * 2)
+            moe = dict(moe=dict(
+                experts=cfg.n_experts, top_k=cfg.top_k,
+                capacity_prefill=capacity(S, cfg.n_experts, cfg.top_k,
+                                          cfg.moe_capacity),
+                capacity_decode=capacity(1, cfg.n_experts, cfg.top_k, 2.0),
+                expert_bytes_per_decode_step=expert_bytes,
+                weight_bytes_per_decode_step=step_bytes,
+                decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3))
         emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S,
              gen=32, prefill_ms=r["prefill_ms"],
              decode_ms_per_token=r["decode_ms_per_token"],
@@ -1650,7 +1907,8 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
              launches=path_launches, launches_prefill=r["launches_prefill"],
              launches_decode=r["launches_decode"], finite_logits=finite,
              ids_in_range=bool(((ids >= 0) & (ids < cfg.vocab)).all()),
-             max_memory_allocated=peak, sample_ids=ids[0, :8].tolist())
+             max_memory_allocated=peak, sample_ids=ids[0, :8].tolist(),
+             **moe)
         check(finite, f"serving {cfg.name}: non-finite logits")
         check(((ids >= 0) & (ids < cfg.vocab)).all(),
               f"serving {cfg.name}: sampled ids outside [0, vocab)")
@@ -1674,6 +1932,10 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
 
     qwen_serving = serve_phase(cfg, "flash_sm90")
     stablelm_serving = serve_phase(cfg_sl, "flash")
+    # ---- 7c, 7d. MoE serving at full width and depth ---------------------
+    olmoe_serving = serve_phase(cfg_ol, "flash_sm90")
+    granite_serving = serve_phase(cfg_gr, "flash_sm90")
+    moe_stage_phase(dev, gen, emit, S)
 
     # ---- 8. float32 consistency: flash prefill vs plain decode ----------
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1704,6 +1966,9 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     del m32, cache, full, logits
     torch.cuda.empty_cache()
 
+    # ---- 8b, 7e. granite in float32: consistency, LDHT placement ---------
+    moe_f32 = moe_f32_phases(args, dev, emit, S)
+
     # ---- 9. flash kernels at their paths' shapes: times, bounds ---------
     def flash_times(shape, dt, inner):
         """Times of the kernel that ``flash_attention`` routes ``shape``
@@ -1733,6 +1998,16 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
                     **flash_times(shape, torch.bfloat16, inner=10), **serving)
 
     sm90_row = make_row("flash_sm90", (B, H, S, D), qwen_serving)
+    # the MoE prefills' shapes, each read on its own path: olmoe's head dim
+    # 128 timed; granite's is qwen's shape with 8 KV heads
+    sm90_row["olmoe_path"] = dict(
+        flash_times((B, H_ol, S, D_ol), torch.bfloat16, inner=10),
+        launches_path="lm_serving olmoe-1b-7b", **olmoe_serving)
+    sm90_row["granite_path"] = dict(
+        shape=[B, H_gr, S, D_gr], kv_heads=Hkv_gr,
+        max_abs_err=errs[(B, H_gr, Hkv_gr, S, S, D_gr, True,
+                          torch.bfloat16)],
+        launches_path="lm_serving granite-moe-1b-a400m", **granite_serving)
     flash_row = make_row("flash", (B, H_sl, S, D_sl), stablelm_serving)
     # flash's float32 path: 3xTF32, three TF32 products per product, so its
     # bound is 3x the flops at the TF32 peak; the CUDA-core bound (the flops
@@ -1744,6 +2019,7 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         cuda_core_bound_ms=f32_path["flops"] / PEAK_FLOPS["float32"] * 1e3,
         launches=f32_launches["flash"], launches_path="lm_consistency_f32")
     flash_row["f32_path"] = f32_path
+    flash_row["moe_f32_path"] = moe_f32
     return [sm90_row, flash_row]
 
 

@@ -1,11 +1,12 @@
 """Model configuration: one dataclass for all ten architectures, copied from
 ``repro.models.config`` field for field so the configs read the same.
 
-The port runs the dense family so far; the other families' fields (MoE,
-SSM, hybrid, enc-dec, VLM) are kept as shape data and for
-:attr:`ModelConfig.param_count`.  The training and sharding knobs
-(``moe_impl``, ``seq_sp``, ``remat``, ``remat_chunks``) are kept as fields
-only: nothing in the port reads them yet.
+The port runs the dense and MoE families; the other families' fields
+(SSM, hybrid, enc-dec, VLM) are kept as shape data and for
+:attr:`ModelConfig.param_count`.  ``moe_impl`` is read and takes the
+grouped dense dispatch for each of its values (one GPU has no mesh); the
+training and sharding knobs (``seq_sp``, ``remat``, ``remat_chunks``) are
+kept as fields only: nothing in the port reads them yet.
 """
 from __future__ import annotations
 
@@ -128,3 +129,17 @@ class ModelConfig:
     def _rec_params(self) -> int:
         d = self.d_model
         return 3 * d * d + d * self.conv_kernel  # in/gate/out + conv
+
+    @property
+    def active_param_count(self) -> int:
+        """N_active for MoE rooflines (experts scaled by top_k/E)."""
+        if self.family != "moe":
+            return self.param_count
+        d = self.d_model
+        mlp_mults = 3 if self.activation == "swiglu" else 2
+        attn = d * self.head_dim * (self.n_heads + 2 * self.n_kv_heads) \
+            + self.n_heads * self.head_dim * d
+        active_mlp = self.top_k * mlp_mults * d * self.d_expert
+        total = self.n_layers * (attn + active_mlp + d * self.n_experts)
+        total += self.vocab * d * (1 if self.tie_embeddings else 2)
+        return total

@@ -3,9 +3,12 @@ modules.
 
 The reference keeps the layers stacked on a leading ``n_groups`` axis under
 ``tree["layers"]["<i>:<kind>"]`` (one group per repeating unit; for the
-dense family the unit is one layer) and leftover layers under
-``tree["rem"]``; with tied embeddings there is no ``lm_head``.  Weights are
-(in, out) for ``x @ W`` in both packages, so leaves copy over unchanged.
+dense and MoE families the unit is one layer, ``"0:dense"`` or
+``"0:moe"``) and leftover layers under ``tree["rem"]``; with tied
+embeddings there is no ``lm_head``.  Weights are (in, out) for ``x @ W``
+in both packages, so leaves copy over unchanged.  An MoE layer placed by
+the reference's ``permute_expert_params`` carries a ``"perm"`` leaf beside
+its weights; it becomes the port module's ``perm`` buffer.
 
 bfloat16 leaves arrive as ``ml_dtypes`` arrays, which ``torch.from_numpy``
 refuses; they go through a ``uint16`` view of the same bits.
@@ -60,7 +63,7 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> LM:
     :class:`LM` on ``device`` (``None`` is the card)."""
     dev = resolve_device(device)
     model = LM(cfg, ParamInit(None, _dtype(cfg), dev))
-    stacked = tree["layers"]["0:dense"]
+    stacked = tree["layers"][f"0:{cfg.unit[0]}"]
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
@@ -73,4 +76,8 @@ def params_from_jax(tree, cfg: ModelConfig, device=None) -> LM:
             for key in parts:
                 leaf = leaf[key]
         _copy(param, leaf, name)
+    perm = stacked["ffn"].get("perm")
+    if perm is not None:
+        for i, layer in enumerate(model.layers):
+            layer.ffn.perm = to_tensor(np.asarray(perm)[i], dev).long()
     return model

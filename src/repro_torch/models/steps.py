@@ -1,5 +1,5 @@
 """Prefill and decode-step factories, ported from
-``src/repro/models/steps.py`` for the dense family.  Training
+``src/repro/models/steps.py`` for the dense and MoE families.  Training
 (``loss_fn``, ``make_train_step``) waits for ROADMAP.md queue 1 item 18 and
 the dry-run input specs for item 19."""
 from __future__ import annotations
@@ -11,7 +11,7 @@ from .config import ModelConfig
 
 
 def model_module(cfg: ModelConfig):
-    transformer.require_dense(cfg)
+    transformer.require_ported(cfg)
     return transformer
 
 

@@ -8,6 +8,9 @@ Parameters come from the reference's own ``init_model(PRNGKey(0), cfg)``
 (layernorm, untied) and ``qwen2.5-smoke`` (GQA with one kv head, head dim
 16).
 
+The MoE family runs on ``granite-smoke`` (GQA, tied embeddings, 4
+experts top-2) and ``olmoe-smoke`` (8 experts top-2).
+
 Tolerances: float32 atol = rtol = 1e-4 (the same arithmetic in another
 summation order).  bfloat16: atol = rtol = 2e-2 on logits of magnitude
 below 1, about five bf16 ulps there, set above the largest difference
@@ -79,7 +82,7 @@ def test_config_copies_match_reference(arch, smoke):
     j, t = jreg.get_config(arch, smoke), treg.get_config(arch, smoke)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
     for prop in ("vocab_padded", "unit", "n_groups", "remainder",
-                 "param_count"):
+                 "param_count", "active_param_count"):
         assert getattr(t, prop) == getattr(j, prop), prop
     assert treg.ARCHS == jreg.ARCHS
 
@@ -380,8 +383,7 @@ def test_init_model_shapes_and_seed():
                                torch.zeros_like(a.layers[0].attn.bq))
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b",
-                                  "mamba2-130m", "recurrentgemma-2b",
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-2b",
                                   "internvl2-76b", "whisper-tiny"])
 def test_unported_families_raise(arch):
     cfg = treg.get_config(arch, smoke=True)
@@ -398,3 +400,143 @@ def test_convert_refuses_a_misfit_leaf():
             "w3": np.zeros((8, 17), np.float32)}
     with pytest.raises(ValueError, match="w3"):
         load_tree(p, tree)
+
+
+# -- the MoE family -----------------------------------------------------------
+
+MOE_ARCHS = ("granite-moe-1b-a400m", "olmoe-1b-7b")
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_model(arch, no_drops=False):
+    """``_model`` for an MoE smoke config; ``no_drops`` sets
+    ``moe_capacity = E / K``, so that no (token, k) entry overflows its
+    expert in any group (C >= S)."""
+    jcfg, tcfg = _configs(arch)
+    if no_drops:
+        cf = jcfg.n_experts / jcfg.top_k
+        jcfg = dataclasses.replace(jcfg, moe_capacity=cf)
+        tcfg = dataclasses.replace(tcfg, moe_capacity=cf)
+    params, _ = jtf.init_model(jax.random.PRNGKey(0), jcfg)
+    tree = jax.tree.map(np.asarray, params)
+    return jcfg, params, tcfg, params_from_jax(tree, tcfg, CPU)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_params_from_jax(arch):
+    """Every leaf of the reference's tree (stacked under ``0:moe``) lands
+    on the port's parameter of the same name, bit for bit; no ``perm``
+    until the experts are placed."""
+    jcfg, jp, tcfg, tm = _moe_model(arch)
+    stacked = jp["layers"]["0:moe"]
+    assert len(tm.layers) == jcfg.n_layers
+    for i, layer in enumerate(tm.layers):
+        assert isinstance(layer, ttf.MoELayer) and layer.ffn.perm is None
+        for name in ("router", "w1", "w2", "w3"):
+            np.testing.assert_array_equal(
+                getattr(layer.ffn, name).numpy(),
+                np.asarray(stacked["ffn"][name][i]))
+        np.testing.assert_array_equal(layer.attn.wq.numpy(),
+                                      np.asarray(stacked["attn"]["wq"][i]))
+    n = sum(p.numel() for p in tm.parameters())
+    assert n == sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jp))
+    assert (tm.lm_head is None) == jcfg.tie_embeddings
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_logits_and_aux(arch):
+    jcfg, jp, tcfg, tm = _moe_model(arch)
+    tok = _tokens(jcfg, 2, 32, seed=3)
+    jl, jaux = jtf.forward(jp, jcfg, jnp.asarray(tok), remat=False)
+    tl, taux = ttf.forward(tm, tcfg, torch.from_numpy(tok))
+    assert tl.shape == (2, 32, jcfg.vocab_padded)
+    _close(tl, jl)
+    assert float(jaux) > 0
+    assert abs(float(taux) - float(jaux)) <= 1e-6
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_and_teacher_forced_decode(arch):
+    """With ``moe_capacity = E / K`` nothing drops: prefill 24 tokens into
+    a 32-slot cache, then feed 4 known tokens; logits agree with the
+    reference at every step, and the last decode logits equal the port's
+    full forward's at that position."""
+    jcfg, jp, tcfg, tm = _moe_model(arch, no_drops=True)
+    tok = _tokens(jcfg, 2, 28, seed=4)
+    jl, jc = jtf.prefill_forward(jp, jcfg, jnp.asarray(tok[:, :24]),
+                                 cache_len=32)
+    tl, tc = ttf.prefill_forward(tm, tcfg, torch.from_numpy(tok[:, :24]),
+                                 cache_len=32)
+    _close(tl, jl)
+    jk, jv = jc["layers"]["0:moe"]
+    for i, (k, v) in enumerate(tc):
+        _close(k, jk[i])
+        _close(v, jv[i])
+    for t in range(4):
+        cur = tok[:, 24 + t:25 + t]
+        jl, jc = jtf.decode_step(jp, jcfg, jc, jnp.asarray(cur),
+                                 jnp.int32(24 + t))
+        tl, tc = ttf.decode_step(tm, tcfg, tc, torch.from_numpy(cur),
+                                 24 + t)
+        _close(tl, jl)
+    full, _ = ttf.forward(tm, tcfg, torch.from_numpy(tok))
+    torch.testing.assert_close(tl[:, 0], full[:, -1], **F32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_placed_tree_carries_perm(arch):
+    """A reference tree placed layer by layer (``permute_expert_params`` on
+    each layer's experts, stacked) carries a ``perm`` leaf; the port keeps
+    it as each MoE's buffer, and forward matches the placed reference and
+    the unplaced model."""
+    from repro.core import expert_placement as jep
+    from repro.core.topology import PU, Topology
+
+    jcfg, jp, tcfg, tm0 = _moe_model(arch)
+    E, L = jcfg.n_experts, jcfg.n_layers
+    topo = Topology(pus=[PU(speed=2.0, memory=1e9),
+                         PU(speed=1.0, memory=1e9)])
+    rng = np.random.default_rng(6)
+    ffn = jax.tree.map(np.asarray, jp["layers"]["0:moe"]["ffn"])
+    placed = []
+    for i in range(L):
+        loads = jep.expert_loads(rng.integers(1, 50, E))
+        perm = jep.place_experts(loads, topo).perm
+        assert not np.array_equal(perm, np.arange(E))
+        placed.append(jep.permute_expert_params(
+            {k: ffn[k][i] for k in ("w1", "w2", "w3")}, perm))
+    stacked = {k: np.stack([np.asarray(p[k]) for p in placed])
+               for k in placed[0]}
+    tree = jax.tree.map(np.asarray, jp)
+    tree["layers"]["0:moe"]["ffn"].update(stacked)
+    tm = params_from_jax(tree, tcfg, CPU)
+    for i, layer in enumerate(tm.layers):
+        np.testing.assert_array_equal(layer.ffn.perm.numpy(),
+                                      stacked["perm"][i])
+        assert layer.ffn.perm.dtype == torch.int64
+    tok = _tokens(jcfg, 2, 32, seed=7)
+    jl, _ = jtf.forward(jax.tree.map(jnp.asarray, tree), jcfg,
+                        jnp.asarray(tok), remat=False)
+    tl, _ = ttf.forward(tm, tcfg, torch.from_numpy(tok))
+    _close(tl, jl)
+    tl0, _ = ttf.forward(tm0, tcfg, torch.from_numpy(tok))
+    torch.testing.assert_close(tl, tl0, **F32)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_init_model_and_cache(arch):
+    """Random init: the reference's shapes, one MoE per layer; the cache
+    holds one (k, v) pair per layer; the steps factories admit the
+    family."""
+    cfg = treg.get_config(arch, smoke=True)
+    m = ttf.init_model(cfg, seed=0, device="cpu")
+    ffn = _moe_model(arch)[1]["layers"]["0:moe"]["ffn"]
+    assert all(isinstance(layer.ffn, tmlp.MoE) for layer in m.layers)
+    assert m.layers[0].ffn.w2.shape == ffn["w2"].shape[1:]
+    cache = ttf.init_cache(cfg, 2, 8, device="cpu")
+    assert len(cache) == cfg.n_layers
+    assert cache[0][0].shape == (2, 8, cfg.n_kv_heads, cfg.head_dim)
+    tok = torch.from_numpy(_tokens(cfg, 2, 8))
+    logits, _ = tsteps.make_prefill(cfg)(m, {"tokens": tok})
+    assert logits.shape == (2, 1, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()

@@ -38,7 +38,8 @@ def test_cli_prints_rate_and_ids(capsys):
     assert ids[:16] == prompts[0].tolist() and len(ids) == 19
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2.5-14b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "qwen2.5-14b",
+                                  "olmoe-1b-7b", "granite-moe-1b-a400m"])
 def test_serve_tokens_numbers(arch):
     cfg = get_config(arch, smoke=True)
     r = serve.serve_tokens(cfg, batch=3, prompt_len=16, gen=5,
@@ -83,12 +84,28 @@ def test_sample_clamps_and_stays_in_range():
     assert (torch.clamp_max(tok, 299) == 299).all()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "olmoe-1b-7b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-tiny"])
 def test_non_dense_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu",
                     "--gen", "1"])
+
+
+def test_moe_arch_serves_from_the_cli(capsys, monkeypatch):
+    """``--arch olmoe-1b-7b --smoke`` serves on the CPU: the reference's
+    first line and prompt ids, 32 + 2 ids printed."""
+    argv = ["--arch", "olmoe-1b-7b", "--smoke", "--gen", "2"]
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    jax_main()
+    want = capsys.readouterr().out.splitlines()
+    serve.main([*argv, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert got[0].startswith(want[0] + " ")
+    assert got[0].startswith("arch=olmoe-smoke batch=4 prompt=32 gen=2")
+    assert "ms/token" in got[1]
+    ids = ast.literal_eval(got[2].split(":", 1)[1])
+    assert len(ids) == 34
+    assert ids[:32] == ast.literal_eval(want[2].split(":", 1)[1])[:32]
 
 
 def test_solver_mode_raises(monkeypatch):
