@@ -137,6 +137,26 @@ Phases (any failure exits non-zero and prints no result line):
      load/speed and the co-activation cut against the contiguous
      placement, the host seconds of ``coactivation_graph`` and
      ``place_experts``;
+  7g. serving at the full width and depth of mamba2-130m (24 SSM layers),
+     as phase 7: prefill ms, decode ms per token, tok/s, peak memory;
+     finite logits, ids in [0, vocab); the model is attention-free, so
+     the prefill and the decode loop launch no flash kernel;
+  7h. the same for recurrentgemma-2b (18 RG-LRU layers and 8 local-
+     attention layers: 10 heads over 1 KV head at head dim 256, window
+     2048; the plain windowed path, as the reference's): no flash launch,
+     and the decode must run at positions at or past the ring's 2048
+     slots (``ring_recorder`` wraps ``transformer.attn_decode``), so the
+     ring wraps;
+  7i. one SSM layer (mamba2-130m), one RG-LRU layer and one local-
+     attention mixer (recurrentgemma-2b) at full width in bf16: the time
+     of each stage (projections, conv, SSD or gates and scan, gate and
+     norm, out projection; the rec layer's MLP beside them) at the
+     prefill and the decode shape;
+  8c. both in float32 at full width and depth, batch 4: last-token logits
+     of an (S + 512)-token prefill against an (S + 384)-token prefill plus
+     128 teacher-forced decode steps, within 1e-3 of the largest |logit|
+     (past the window: a true sliding mask and a wrapping ring; the SSM's
+     prefills cut different chunks); no flash launch;
   9. each flash kernel at the shapes its paths give it (flash_sm90: qwen's
      prefill in bf16, nested: olmoe's prefill at head dim 128 and
      granite's launches; flash: stablelm-3b's prefill in bf16 and phase
@@ -152,6 +172,7 @@ Imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import json
@@ -706,6 +727,252 @@ def routing_recorder(calls: list):
         yield calls
     finally:
         transformer.moe_forward = fn
+
+
+@contextlib.contextmanager
+def ring_recorder(calls: list):
+    """Record ``(pos, ring slots)`` of every windowed decode attention
+    call (the hybrid's local attention) while the block runs:
+    ``transformer.attn_decode`` is wrapped and runs as before.  A call at
+    ``pos >= slots`` writes over the ring's oldest slot.  The wrapper is
+    removed on exit."""
+    from repro_torch.models import transformer
+    fn = transformer.attn_decode
+
+    def wrapper(p, x, cache, pos, **kw):
+        if kw.get("window") is not None:
+            calls.append((pos, cache[0].shape[1]))
+        return fn(p, x, cache, pos, **kw)
+
+    transformer.attn_decode = wrapper
+    try:
+        yield calls
+    finally:
+        transformer.attn_decode = fn
+
+
+def ring_report(calls: list) -> dict:
+    """The decode positions and ring sizes seen by :func:`ring_recorder`,
+    and whether the ring wrapped (a position at or past its size)."""
+    if not calls:
+        return dict(calls=0, wrapped=False)
+    pos = [c[0] for c in calls]
+    slots = sorted({c[1] for c in calls})
+    return dict(calls=len(calls), min_pos=min(pos), max_pos=max(pos),
+                ring_slots=slots,
+                wrapped=any(p >= n for p, n in calls))
+
+
+def recurrent_stage_phase(dev, gen, emit, S: int) -> None:
+    """Phase 7i: one SSM layer of mamba2-130m, one RG-LRU layer and one
+    local-attention mixer of recurrentgemma-2b, at full width in bf16
+    (random weights and a unit-normal input from ``gen``), at the prefill
+    shape (batch 8, S tokens) and the decode shape (batch 8, one token,
+    a prefilled cache): the CUDA-event time of each stage and of the
+    whole mixer.  SSM stages: projections, conv, SSD (the recurrent step
+    in decode), gate and norm, out projection; RG-LRU: projections (with
+    the GeLU gate), conv, gates, scan (the one-step update in decode), out
+    projection, and the rec layer's MLP beside them."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import attention, mlp, rglru, ssm
+    from repro_torch.models.common import ParamInit, causal_conv, conv_step
+
+    bf16 = torch.bfloat16
+    B = 8
+
+    def stages(fns: dict) -> dict:
+        return {k: event_ms(f) for k, f in fns.items()}
+
+    # ---- SSM (Mamba2 / SSD) ----------------------------------------------
+    cfg = get_config("mamba2-130m")
+    D, N, hd = cfg.d_model, cfg.ssm_state, cfg.ssm_headdim
+    d_in = cfg.ssm_expand * D
+    kw = dict(ssm_state=N, headdim=hd, expand=cfg.ssm_expand)
+    p = ssm.init_ssm(ParamInit(gen, bf16, dev), D, N, hd, cfg.ssm_expand,
+                     cfg.conv_kernel)
+    x = torch.randn((B, S, D), generator=gen, device=dev).to(bf16)
+    z, xs, Bm, Cm, dt = ssm.split_proj(p, x)
+    raw = torch.cat([xs, Bm, Cm], dim=-1)
+    xs2, B2, C2 = torch.split(F.silu(causal_conv(raw, p.conv_w, p.conv_b)),
+                              [d_in, N, N], dim=-1)
+    y, _ = ssm.ssd(p, xs2, B2, C2, dt, headdim=hd)
+    g = ssm.gate_norm(p, y, z)
+    ms = stages(dict(
+        proj=lambda: ssm.split_proj(p, x),
+        conv=lambda: F.silu(causal_conv(torch.cat([xs, Bm, Cm], dim=-1),
+                                        p.conv_w, p.conv_b)),
+        ssd=lambda: ssm.ssd(p, xs2, B2, C2, dt, headdim=hd),
+        gate_norm=lambda: ssm.gate_norm(p, y, z),
+        out=lambda: g @ p.out_proj,
+        ssm_forward=lambda: ssm.ssm_forward(p, x, **kw)))
+    c = ssm._chunk(S, 256)
+    decay_bytes = B * (d_in // hd) * S * c * 4
+    emit(phase="recurrent_stages", arch=cfg.name, mixer="ssm",
+         shape="prefill", batch=B, tokens=S, chunk=c, stage_ms=ms,
+         stage_sum_ms=sum(v for k, v in ms.items() if k != "ssm_forward"),
+         layers=cfg.n_layers, mixer_ms_all_layers=ms["ssm_forward"]
+         * cfg.n_layers, decay_matrix_bytes=decay_bytes)
+    del z, xs, Bm, Cm, dt, raw, xs2, B2, C2, y, g
+    _, cache = ssm.ssm_forward(p, x, return_state=True, **kw)
+    x1 = x[:, -1:].contiguous()
+    z, xs, Bm, Cm, dt = ssm.split_proj(p, x1[:, 0])
+    xbc = torch.cat([xs, Bm, Cm], dim=-1)
+    co, _ = conv_step(cache["conv"], xbc, p.conv_w, p.conv_b)
+    xs2, B2, C2 = torch.split(F.silu(co), [d_in, N, N], dim=-1)
+    y, _ = ssm.ssd_step(p, cache["h"], xs2, B2, C2, dt, headdim=hd)
+    g = ssm.gate_norm(p, y, z)
+    ms = stages(dict(
+        proj=lambda: ssm.split_proj(p, x1[:, 0]),
+        conv=lambda: F.silu(conv_step(cache["conv"],
+                                      torch.cat([xs, Bm, Cm], dim=-1),
+                                      p.conv_w, p.conv_b)[0]),
+        state=lambda: ssm.ssd_step(p, cache["h"], xs2, B2, C2, dt,
+                                   headdim=hd),
+        gate_norm=lambda: ssm.gate_norm(p, y, z),
+        out=lambda: g @ p.out_proj,
+        ssm_decode=lambda: ssm.ssm_decode(p, x1, cache, **kw)))
+    emit(phase="recurrent_stages", arch=cfg.name, mixer="ssm",
+         shape="decode", batch=B, tokens=1, stage_ms=ms,
+         stage_sum_ms=sum(v for k, v in ms.items() if k != "ssm_decode"),
+         layers=cfg.n_layers,
+         mixer_ms_all_layers=ms["ssm_decode"] * cfg.n_layers)
+    del p, x, x1, cache, z, xs, Bm, Cm, dt, xbc, co, xs2, B2, C2, y, g
+    torch.cuda.empty_cache()
+
+    # ---- RG-LRU and the rec layer's MLP ----------------------------------
+    cfg = get_config("recurrentgemma-2b")
+    D = cfg.d_model
+    init = ParamInit(gen, bf16, dev)
+    p = rglru.init_rglru(init, D, cfg.conv_kernel)
+    ffn = mlp.init_mlp(init, D, cfg.d_ff, cfg.activation)
+    x = torch.randn((B, S, D), generator=gen, device=dev).to(bf16)
+    gate, xin = rglru.project(p, x)
+    u = causal_conv(xin, p.conv_w, p.conv_b)
+    la, gx = rglru.gates(p, u)
+    h = rglru.linear_scan(la, gx)
+    n_rec = sum(k == "rec" for k in cfg.unit) * cfg.n_groups \
+        + len(cfg.remainder)
+    ms = stages(dict(
+        proj=lambda: rglru.project(p, x),
+        conv=lambda: causal_conv(xin, p.conv_w, p.conv_b),
+        gates=lambda: rglru.gates(p, u),
+        scan=lambda: rglru.linear_scan(la, gx),
+        out=lambda: rglru.gated_out(p, h, gate),
+        rglru_forward=lambda: rglru.rglru_forward(p, x),
+        ffn=lambda: mlp.mlp_forward(ffn, x, cfg.activation)))
+    emit(phase="recurrent_stages", arch=cfg.name, mixer="rglru",
+         shape="prefill", batch=B, tokens=S, stage_ms=ms,
+         stage_sum_ms=sum(v for k, v in ms.items()
+                          if k not in ("rglru_forward", "ffn")),
+         scan_rounds=(S - 1).bit_length(), layers=n_rec,
+         mixer_ms_all_layers=ms["rglru_forward"] * n_rec)
+    del gate, xin, u, la, gx, h
+    _, cache = rglru.rglru_forward(p, x, return_state=True)
+    x1 = x[:, -1:].contiguous()
+    gate, xin = rglru.project(p, x1[:, 0])
+    u, _ = conv_step(cache["conv"], xin, p.conv_w, p.conv_b)
+    la, gx = rglru.gates(p, u)
+    h = torch.exp(la) * cache["h"] + gx
+    ms = stages(dict(
+        proj=lambda: rglru.project(p, x1[:, 0]),
+        conv=lambda: conv_step(cache["conv"], xin, p.conv_w, p.conv_b),
+        gates=lambda: rglru.gates(p, u),
+        state=lambda: torch.exp(la) * cache["h"] + gx,
+        out=lambda: rglru.gated_out(p, h, gate),
+        rglru_decode=lambda: rglru.rglru_decode(p, x1, cache),
+        ffn=lambda: mlp.mlp_forward(ffn, x1, cfg.activation)))
+    emit(phase="recurrent_stages", arch=cfg.name, mixer="rglru",
+         shape="decode", batch=B, tokens=1, stage_ms=ms,
+         stage_sum_ms=sum(v for k, v in ms.items()
+                          if k not in ("rglru_decode", "ffn")),
+         layers=n_rec, mixer_ms_all_layers=ms["rglru_decode"] * n_rec)
+    del p, ffn, cache, gate, xin, u, la, gx, h
+
+    # ---- the local attention (window, plain chunked path) ----------------
+    akw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+               window=cfg.window)
+    pa = attention.init_attention(init, D, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.head_dim, cfg.qkv_bias)
+    clen = min(cfg.window, S)
+    _, kv = attention.attn_prefill(pa, x, clen, **akw)
+    n_attn = cfg.n_groups * cfg.unit.count("attn")
+    ms = dict(prefill=event_ms(lambda: attention.attn_prefill(
+                  pa, x, clen, **akw), reps=5),
+              decode=event_ms(lambda: attention.attn_decode(
+                  pa, x1, kv, S, **akw)))
+    emit(phase="recurrent_stages", arch=cfg.name, mixer="local_attention",
+         batch=B, tokens=S, window=cfg.window, ring_slots=clen,
+         head_dim=cfg.head_dim, stage_ms=ms, layers=n_attn,
+         prefill_ms_all_layers=ms["prefill"] * n_attn,
+         decode_ms_all_layers=ms["decode"] * n_attn)
+    del pa, kv, x, x1
+    torch.cuda.empty_cache()
+
+
+def recurrent_f32_phase(args, dev, emit, S: int) -> dict:
+    """Phase 8c: mamba2-130m and recurrentgemma-2b in float32 at full
+    width and depth, batch 4: the last-token logits of an (S + 512)-token
+    prefill against an (S + 384)-token prefill plus 128 teacher-forced
+    decode steps, within 1e-3 of the largest |logit|.  Past the window of
+    2048 the hybrid's prefill runs a true sliding mask and its decode
+    wraps the ring; the SSM's two prefills cut different chunks (256 and
+    152 at S = 2048).  Neither path may launch a flash kernel.  Returns
+    the errors by arch."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.ssm import _chunk
+    from repro_torch.models.transformer import (decode_step, init_model,
+                                                prefill_forward)
+
+    n, n_dec = S + 512, 128
+    out = {}
+    for arch in ("mamba2-130m", "recurrentgemma-2b"):
+        cfg = get_config(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model = init_model(cfg32, seed=args.seed, device=dev)
+        toks = torch.from_numpy(np.random.default_rng(args.seed + 2)
+                                .integers(0, cfg.vocab, size=(4, n),
+                                          dtype=np.int32)).to(dev)
+        ring = []
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        full, _ = prefill_forward(model, cfg32, toks, cache_len=n)
+        with ring_recorder(ring):
+            logits, cache = prefill_forward(model, cfg32,
+                                            toks[:, :n - n_dec], cache_len=n)
+            for t in range(n - n_dec, n):
+                logits, cache = decode_step(model, cfg32, cache,
+                                            toks[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        launches = _build.launches()
+        seconds = time.perf_counter() - t0
+        scale = float(full.abs().max())
+        rel = float((full - logits).abs().max()) / scale
+        rep = ring_report(ring)
+        extra = (dict(ring=rep) if cfg.family == "hybrid" else
+                 dict(chunks=[_chunk(n, 256), _chunk(n - n_dec, 256)]))
+        emit(phase="recurrent_consistency_f32", arch=cfg.name, batch=4,
+             prefill=n, prefill_then_decode=[n - n_dec, n_dec],
+             max_abs_logit=scale, rel_err=rel, tol=1e-3,
+             launches={k: launches[k] for k in ("flash", "flash_sm90")},
+             seconds=seconds, **extra)
+        del model, cache, full, logits
+        torch.cuda.empty_cache()
+        check(rel < 1e-3, f"{cfg.name} f32 prefill vs prefill+decode "
+                          f"logits differ by {rel} of the largest |logit|")
+        check(launches["flash"] == 0 and launches["flash_sm90"] == 0,
+              f"the {cfg.name} f32 paths launched {launches}, want no "
+              f"flash kernel")
+        if cfg.family == "hybrid":
+            check(rep["wrapped"], f"{cfg.name}: the f32 decode never "
+                                  f"wrapped the ring: {rep}")
+        out[cfg.name] = rel
+    return out
 
 
 def moe_stage_phase(dev, gen, emit, S: int) -> None:
@@ -1745,8 +2012,9 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.launch.serve import serve_tokens
     from repro_torch.models.attention import gqa_attend
     from repro_torch.models.mlp import capacity
-    from repro_torch.models.transformer import (decode_step, init_model,
-                                                prefill_forward)
+    from repro_torch.models.common import ParamInit
+    from repro_torch.models.transformer import (LM, decode_step, init_model,
+                                                layer_kinds, prefill_forward)
 
     cfg = get_config("qwen1.5-0.5b")
     B, S = 8, args.prompt_len
@@ -1865,24 +2133,30 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         """Serve ``cfg`` (batch B, prompt S, 32 generated tokens) after a
         gen=1 warm-up, with the counts reset just before and read just
         after.  The prefill must launch ``kernel`` once per layer and the
-        other flash kernel never, the decode loop neither."""
-        other = kernels[1 - kernels.index(kernel)]
+        other flash kernel never, the decode loop neither; with ``kernel``
+        None (the SSM and hybrid families) no flash kernel may launch, and
+        the hybrid's decode must wrap its local attention's ring."""
+        other = kernels[1 - kernels.index(kernel)] if kernel else None
         # warm-up: cuBLAS handles, and the allocator's cache, which the
         # timed run then reuses (emptying it in between made the prefill
         # time take in cudaMalloc calls)
         serve_tokens(cfg, batch=B, prompt_len=S, gen=1, seed=args.seed,
                      device=dev)
         torch.cuda.reset_peak_memory_stats()
+        ring = []
+        recorder = (ring_recorder(ring) if cfg.family == "hybrid"
+                    else contextlib.nullcontext())
         _build.reset_launches()
         t0 = time.perf_counter()
-        r = serve_tokens(cfg, batch=B, prompt_len=S, gen=32,
-                         temperature=0.8, seed=args.seed, device=dev)
+        with recorder:
+            r = serve_tokens(cfg, batch=B, prompt_len=S, gen=32,
+                             temperature=0.8, seed=args.seed, device=dev)
         serve_s = time.perf_counter() - t0
         path_launches = _build.launches()
         peak = torch.cuda.max_memory_allocated()
         ids = r["tokens"][:, S:]
         finite = bool(torch.isfinite(r["logits"].float()).all())
-        moe = {}
+        extra = {}
         if cfg.family == "moe":
             # the grouped dispatch multiplies every expert each decode
             # step, so a step reads every weight but the embedding rows
@@ -1892,7 +2166,7 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
             step_bytes = (cfg.param_count - emb) * 2
             expert_bytes = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model
                             * cfg.d_expert * 2)
-            moe = dict(moe=dict(
+            extra = dict(moe=dict(
                 experts=cfg.n_experts, top_k=cfg.top_k,
                 capacity_prefill=capacity(S, cfg.n_experts, cfg.top_k,
                                           cfg.moe_capacity),
@@ -1900,6 +2174,18 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
                 expert_bytes_per_decode_step=expert_bytes,
                 weight_bytes_per_decode_step=step_bytes,
                 decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3))
+        if kernel is None:
+            # a decode step reads every weight once (the tied embedding
+            # as the head; bf16, counted on a model built on the meta
+            # device): its floor at the HBM rate, the caches aside
+            meta = LM(cfg, ParamInit(None, torch.bfloat16,
+                                     torch.device("meta")))
+            step_bytes = 2 * sum(p.numel() for p in meta.parameters())
+            extra = dict(recurrent=dict(
+                layer_kinds=dict(collections.Counter(layer_kinds(cfg))),
+                weight_bytes_per_decode_step=step_bytes,
+                decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+                ring=ring_report(ring)))
         emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S,
              gen=32, prefill_ms=r["prefill_ms"],
              decode_ms_per_token=r["decode_ms_per_token"],
@@ -1908,11 +2194,21 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
              launches_decode=r["launches_decode"], finite_logits=finite,
              ids_in_range=bool(((ids >= 0) & (ids < cfg.vocab)).all()),
              max_memory_allocated=peak, sample_ids=ids[0, :8].tolist(),
-             **moe)
+             **extra)
         check(finite, f"serving {cfg.name}: non-finite logits")
         check(((ids >= 0) & (ids < cfg.vocab)).all(),
               f"serving {cfg.name}: sampled ids outside [0, vocab)")
         pre, dec = r["launches_prefill"], r["launches_decode"]
+        if kernel is None:
+            check(not any(path_launches[k] for k in kernels),
+                  f"serving {cfg.name} launched {path_launches}, want no "
+                  f"flash kernel")
+            check(cfg.family != "hybrid" or extra["recurrent"]["ring"][
+                "wrapped"], f"serving {cfg.name}: the decode never "
+                f"wrapped the ring: {extra['recurrent']['ring']}")
+            del r
+            torch.cuda.empty_cache()
+            return dict(max_memory_allocated_serving=peak)
         check(pre[kernel] == cfg.n_layers and pre[other] == 0,
               f"serving {cfg.name}: the prefill launched {kernel} "
               f"{pre[kernel]} and {other} {pre[other]} times, want "
@@ -1968,6 +2264,14 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
 
     # ---- 8b, 7e. granite in float32: consistency, LDHT placement ---------
     moe_f32 = moe_f32_phases(args, dev, emit, S)
+
+    # ---- 7g, 7h, 7i, 8c. the recurrent families: no flash kernel ---------
+    t0 = time.perf_counter()
+    serve_phase(get_config("mamba2-130m"), None)
+    serve_phase(get_config("recurrentgemma-2b"), None)
+    recurrent_stage_phase(dev, gen, emit, S)
+    recurrent_f32_phase(args, dev, emit, S)
+    emit(phase="recurrent_phases", seconds=time.perf_counter() - t0)
 
     # ---- 9. flash kernels at their paths' shapes: times, bounds ---------
     def flash_times(shape, dt, inner):

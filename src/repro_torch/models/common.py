@@ -1,4 +1,5 @@
-"""Shared model building blocks: parameter init, norms, RoPE.
+"""Shared model building blocks: parameter init, the recurrent layers'
+causal conv, norms, RoPE.
 
 Ported from ``src/repro/models/common.py``.  The reference creates every
 parameter through ``ParamCollector.param`` with logical axis names and maps
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -44,6 +46,31 @@ class ParamInit:
             w = (torch.randn(shape, generator=self.gen, dtype=torch.float32,
                              device=self.device) * s).to(self.dtype)
         return nn.Parameter(w, requires_grad=False)
+
+
+# -- depthwise causal conv (SSM and RG-LRU) -----------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d with no activation, as the reference's
+    ``_causal_conv`` sums its taps: x (B, S, C), w (K, C), b (C,)."""
+    K, S = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = pad[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + pad[:, i:i + S] * w[i]
+    return out + b
+
+
+def conv_step(tail: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor):
+    """One step of :func:`causal_conv` from the last K - 1 inputs
+    ``tail`` (B, K - 1, C) and the new ``x`` (B, C): (out (B, C), new
+    tail).  The taps are summed as the reference's ``einsum("bkc,kc->bc")``
+    sums them: in float32, rounded once to x's dtype."""
+    hist = torch.cat([tail, x[:, None]], dim=1)                  # (B, K, C)
+    out = (hist.float() * w.float()).sum(1).to(hist.dtype)
+    return out + b, hist[:, 1:]
 
 
 # -- norms --------------------------------------------------------------------

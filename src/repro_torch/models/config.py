@@ -1,8 +1,8 @@
 """Model configuration: one dataclass for all ten architectures, copied from
 ``repro.models.config`` field for field so the configs read the same.
 
-The port runs the dense and MoE families; the other families' fields
-(SSM, hybrid, enc-dec, VLM) are kept as shape data and for
+The port runs the dense, MoE, SSM and hybrid families; the enc-dec and
+VLM families' fields are kept as shape data and for
 :attr:`ModelConfig.param_count`.  ``moe_impl`` is read and takes the
 grouped dense dispatch for each of its values (one GPU has no mesh); the
 training and sharding knobs (``seq_sp``, ``remat``, ``remat_chunks``) are

@@ -2,10 +2,12 @@
 modules.
 
 The reference keeps the layers stacked on a leading ``n_groups`` axis under
-``tree["layers"]["<i>:<kind>"]`` (one group per repeating unit; for the
-dense and MoE families the unit is one layer, ``"0:dense"`` or
-``"0:moe"``) and leftover layers under ``tree["rem"]``; with tied
-embeddings there is no ``lm_head``.  Weights are (in, out) for ``x @ W``
+``tree["layers"]["<i>:<kind>"]`` (one group per repeating unit: ``"0:dense"``
+for the dense family, ``"0:rec"``, ``"1:rec"``, ``"2:attn"`` for
+RecurrentGemma) and the remainder layers unstacked under
+``tree["rem"]["<j>:<kind>"]``; with tied embeddings there is no
+``lm_head``.  The port's layer ``l`` is the group ``l // len(unit)`` of
+``"<l % len(unit)>:<kind>"``, and past the groups remainder layer ``j``.  Weights are (in, out) for ``x @ W``
 in both packages, so leaves copy over unchanged.  An MoE layer placed by
 the reference's ``permute_expert_params`` carries a ``"perm"`` leaf beside
 its weights; it becomes the port module's ``perm`` buffer.
@@ -58,26 +60,38 @@ def load_tree(module: nn.Module, tree) -> nn.Module:
     return module
 
 
+def _layer_tree(tree, cfg: ModelConfig, l: int):
+    """(sub-tree, index into its stacked leaves or None) of layer ``l``."""
+    U = len(cfg.unit)
+    if l < cfg.n_groups * U:
+        return tree["layers"][f"{l % U}:{cfg.unit[l % U]}"], l // U
+    j = l - cfg.n_groups * U
+    return tree["rem"][f"{j}:{cfg.remainder[j]}"], None
+
+
 def params_from_jax(tree, cfg: ModelConfig, device=None) -> LM:
     """The reference's ``init_model`` params (numpy leaves) as an
     :class:`LM` on ``device`` (``None`` is the card)."""
     dev = resolve_device(device)
     model = LM(cfg, ParamInit(None, _dtype(cfg), dev))
-    stacked = tree["layers"][f"0:{cfg.unit[0]}"]
     for name, param in model.named_parameters():
         parts = name.split(".")
         if parts[0] == "layers":
-            leaf = stacked
+            leaf, index = _layer_tree(tree, cfg, int(parts[1]))
             for key in parts[2:]:
                 leaf = leaf[key]
-            leaf = np.asarray(leaf)[int(parts[1])]
+            if index is not None:
+                leaf = np.asarray(leaf)[index]
         else:
             leaf = tree
             for key in parts:
                 leaf = leaf[key]
         _copy(param, leaf, name)
-    perm = stacked["ffn"].get("perm")
-    if perm is not None:
-        for i, layer in enumerate(model.layers):
-            layer.ffn.perm = to_tensor(np.asarray(perm)[i], dev).long()
+    for l, layer in enumerate(model.layers):
+        sub, index = _layer_tree(tree, cfg, l)
+        perm = sub["ffn"].get("perm") if "ffn" in sub else None
+        if perm is not None:
+            perm = np.asarray(perm)
+            layer.ffn.perm = to_tensor(
+                perm if index is None else perm[index], dev).long()
     return model

@@ -1,7 +1,7 @@
 """Prefill and decode-step factories, ported from
-``src/repro/models/steps.py`` for the dense and MoE families.  Training
-(``loss_fn``, ``make_train_step``) waits for ROADMAP.md queue 1 item 18 and
-the dry-run input specs for item 19."""
+``src/repro/models/steps.py`` for the dense, MoE, SSM and hybrid
+families.  Training (``loss_fn``, ``make_train_step``) waits for
+ROADMAP.md queue 1 item 18 and the dry-run input specs for item 19."""
 from __future__ import annotations
 
 from typing import Callable

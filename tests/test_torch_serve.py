@@ -84,7 +84,7 @@ def test_sample_clamps_and_stays_in_range():
     assert (torch.clamp_max(tok, 299) == 299).all()
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-tiny"])
 def test_non_dense_arch_raises(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu",
