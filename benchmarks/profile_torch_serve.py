@@ -3,8 +3,12 @@
     python3 benchmarks/profile_torch_serve.py [--arch qwen1.5-0.5b]
         [--batch 8] [--prompt-len 2048] [--decode-steps 32] [--seed 0]
 
-Builds a dense config (qwen1.5-0.5b by default, or stablelm-3b) at full
-width and depth (random weights from a seed), warms up,
+Builds a dense config (qwen1.5-0.5b by default, or stablelm-3b), the VLM
+internvl2-76b (the prompt's first 256 positions image embeddings) or the
+encoder-decoder whisper-tiny (1,500 frames; ``--prompt-len 224``) at full
+width and depth (random weights, embeddings and frames from a seed), but
+internvl2-76b at ``chip_smoke.VLM_LAYERS`` of its 80 layers, the cut that
+fits one card and that ``chip_smoke.py`` serves; warms up,
 then traces one prefill and ``--decode-steps`` decode steps with
 ``torch.profiler`` (CPU and CUDA activities), each phase in its own
 session.  For each phase it prints one JSON line: wall time (CUDA events,
@@ -20,6 +24,7 @@ of JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -49,7 +54,8 @@ def classify(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen1.5-0.5b",
-                    choices=("qwen1.5-0.5b", "stablelm-3b"))
+                    choices=("qwen1.5-0.5b", "stablelm-3b", "internvl2-76b",
+                             "whisper-tiny"))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=2048)
     ap.add_argument("--decode-steps", type=int, default=32)
@@ -65,10 +71,13 @@ def main(argv=None) -> int:
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import VLM_LAYERS
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import _build
-    from repro_torch.models.transformer import (decode_step, init_model,
-                                                prefill_forward)
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models.steps import (make_decode_step, make_prefill,
+                                          model_module)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -76,19 +85,24 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     tag = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
     cfg = get_config(args.arch)
+    if cfg.name == "internvl2-76b":
+        cfg = dataclasses.replace(cfg, n_layers=VLM_LAYERS)
     B, S, n_dec = args.batch, args.prompt_len, args.decode_steps
     _build.build_all(["flash", "flash_sm90"])
-    model = init_model(cfg, seed=args.seed, device=dev)
-    toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+    model = model_module(cfg).init_model(cfg, seed=args.seed, device=dev)
+    rng = np.random.default_rng(args.seed)
+    toks = torch.from_numpy(rng.integers(
         0, cfg.vocab, size=(B, S + n_dec), dtype=np.int32)).to(dev)
+    batch = {"tokens": toks[:, :S], **stub_inputs(cfg, rng, B, dev)}
     cache_len = S + n_dec
+    step = make_decode_step(cfg)
 
     def prefill():
-        return prefill_forward(model, cfg, toks[:, :S], cache_len=cache_len)
+        return make_prefill(cfg, cache_len=cache_len)(model, batch)
 
     def decode(cache):
         for t in range(S, S + n_dec):
-            _, cache = decode_step(model, cfg, cache, toks[:, t:t + 1], t)
+            _, cache = step(model, cache, toks[:, t:t + 1], t)
         return cache
 
     def timed(fn, *a):
@@ -129,7 +143,8 @@ def main(argv=None) -> int:
             overcounted.append(label)
         steps = n_dec if label == "decode" else 1
         print(json.dumps({
-            "profile": label, "arch": cfg.name, "batch": B,
+            "profile": label, "arch": cfg.name, "layers": cfg.n_layers,
+            "batch": B,
             "prompt_len": S, "steps": steps, "wall_ms": wall_ms,
             "wall_ms_per_step": wall_ms / steps,
             "wall_ms_profiled": prof_wall_ms, "device_ms": busy_ms,

@@ -97,22 +97,32 @@ Phases (any failure exits non-zero and prints no result line):
      + cp.async; bf16, and f32 as 3xTF32); the reference test shapes,
      every head dim in both of flash's dtypes, causal and not, GQA, Sq !=
      Sk, S below one tile and off a tile multiple, the MoE prefill shapes
-     (olmoe, granite), stablelm-3b's prefill shape and the float32 shapes
-     of phase 8; and show that the LM's causal
-     attention reaches flash at a length that is not a tile multiple;
+     (olmoe, granite), stablelm-3b's prefill shape, internvl2's (GQA 8:1
+     at head dim 128), whisper's encoder and cross attention (non-causal,
+     1500 x 1500 and 224 x 1500: no tile multiple) and causal self
+     attention (224 padded to 256) in bf16 and at phase 8e's float32
+     shapes, a ragged non-causal call at head dim 80, the float32 shapes
+     of phases 8 and 8d, and, on every route, non-causal calls whose last
+     key tile lies mostly past Sk (each shows that scoring those keys
+     would move the output by more than ten times the tolerance); and show
+     that the LM's causal attention reaches flash at a length that is not
+     a tile multiple (whisper's 224 and 96 among them), and its
+     non-causal attention at Sq > 1 with no padding;
   7. LM serving at the full width of qwen1.5-0.5b (random weights from a
      seed): batch 8, prompt 2048, 32 generated tokens through
      ``repro_torch.launch.serve.serve_tokens``; the counts are reset just
      before and read just after, and the prefill must launch flash_sm90
-     once per layer and flash never, the decode loop neither;
+     once per layer and flash never, the decode loop neither; each
+     serving line (7 to 7k) carries the bytes a decode step reads
+     (weights and caches, ``decode_bytes``) and their floor;
   7b. the same at the full width and depth of stablelm-3b (head dim 80,
      layernorm), the path of flash in bf16: the prefill must launch flash
      once per layer and flash_sm90 never, the decode loop neither;
   7c. MoE serving at the full width and depth of olmoe-1b-7b (64 experts
      top-8, head dim 128), as phase 7: 16 flash_sm90 launches per prefill,
      flash never, the decode loop neither; the dispatch capacities and the
-     bytes every decode step reads (the grouped dispatch multiplies every
-     expert);
+     expert bytes every decode step reads (the grouped dispatch multiplies
+     every expert);
   7d. the same for granite-moe-1b-a400m (32 experts top-8, 16 heads over 8
      KV heads at head dim 64, tied embeddings): 24 flash_sm90 launches per
      prefill;
@@ -157,12 +167,30 @@ Phases (any failure exits non-zero and prints no result line):
      128 teacher-forced decode steps, within 1e-3 of the largest |logit|
      (past the window: a true sliding mask and a wrapping ring; the SSM's
      prefills cut different chunks); no flash launch;
+  7j. serving internvl2-76b at full width (d 8192, 64 heads over 8 KV at
+     128, d_ff 28672, vocab 128,256, untied) and ``VLM_LAYERS`` = 32 of
+     its 80 layers (80 take 141 GB in bf16; the line names the cut in
+     ``reduced``), as phase 7 with the prompt's first 256 positions
+     taken by random image embeddings: 32 flash_sm90 launches per
+     prefill, flash never, the decode loop neither;
+  7k. the same for whisper-tiny at full size (4 + 4 layers, d 384, 6
+     heads at 64, 1,500 random frames, tied), prompt ``WHISPER_PROMPT`` =
+     224 (half of whisper's 448-token context): 12 flash_sm90 launches per
+     prefill (4 encoder and 4 cross attention, non-causal; 4 causal self
+     attention, padded to 256), flash never, the decode loop neither;
+  8d, 8e. float32 consistency, batch 4, within 1e-3 of the largest
+     |logit|: internvl2 at full width and 2 layers, a 2048-token prefill
+     against 1920 + 128 decode steps, the image prefix in both; whisper-
+     tiny, 224 against 96 + 128 (the decode's plain cross attention
+     against the prefill's flash one); every prefill launches flash once
+     per attention call, flash_sm90 never;
   9. each flash kernel at the shapes its paths give it (flash_sm90: qwen's
-     prefill in bf16, nested: olmoe's prefill at head dim 128 and
-     granite's launches; flash: stablelm-3b's prefill in bf16 and phase
-     8's float32 prefill, nested: 8b's launches) beside its plain version,
-     SDPA and its bound; peak device memory; then the ``{"kernels":
-     [...]}`` line;
+     prefill in bf16, nested: olmoe's prefill at head dim 128, granite's
+     launches, internvl2's prefill with 8 KV heads, whisper's encoder and
+     cross attention, non-causal; flash: stablelm-3b's prefill in bf16 and
+     phase 8's float32 prefill, nested: 8b's, 8d's and 8e's launches)
+     beside its plain version, SDPA with the same mask and heads and its
+     bound; peak device memory; then the ``{"kernels": [...]}`` line;
  10. last line: ``{"ok": true, "device": {...}}``.
 
 Numbers are JSON lines tagged with the card's name and power limit.
@@ -193,6 +221,14 @@ PEAK_FLOPS = {                   # H100 SXM data sheet, dense
 SOLVER_REQUESTS = 8              # requests of phase 5d's dist_halo service
 TABLE_SIDE = 256                 # phase 4e: evaluate runs all eight methods
 BELL_COUNTS = ("spmv_bell:sell", "spmv_bell_multi:sell")   # block-ELL
+VLM_LAYERS = 32                  # 7j: internvl2-76b at 32 of its 80 layers
+VLM_F32_LAYERS = 2               # 8d: internvl2-76b in float32
+WHISPER_PROMPT = 224             # 7k, 8e: half of whisper's 448 context
+KEY_TILE = {                     # keys per tile of each flash route
+    ("flash_sm90", "torch.bfloat16"): 128,    # BK, csrc/flash_attn_sm90.cu
+    ("flash", "torch.bfloat16"): 64,          # KT, csrc/flash_attn.cu
+    ("flash", "torch.float32"): 32,
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -973,6 +1009,121 @@ def recurrent_f32_phase(args, dev, emit, S: int) -> dict:
                                   f"wrapped the ring: {rep}")
         out[cfg.name] = rel
     return out
+
+
+def vlm_audio_f32_phase(args, dev, emit, S: int) -> dict:
+    """Phases 8d and 8e in float32, batch 4, the last-token logits of a
+    whole prefill against a shorter prefill plus 128 teacher-forced decode
+    steps, within 1e-3 of the largest |logit|: internvl2-76b at full width
+    and ``VLM_F32_LAYERS`` layers, prompt S whose first 256 positions are
+    the image embeddings in both prefills; whisper-tiny at full size,
+    prompt ``WHISPER_PROMPT`` (the decode's plain cross attention against
+    the prefill's flash one).  Every prefill launches ``flash`` (the f32
+    route) once per attention call, ``flash_sm90`` never, the decode
+    none.  Returns each check's error and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models.steps import (make_decode_step, make_prefill,
+                                          model_module)
+
+    n_dec, out = 128, {}
+    rng = np.random.default_rng(args.seed + 3)
+    for phase, cfg, n in (
+            ("vlm_consistency_f32", dataclasses.replace(
+                get_config("internvl2-76b"), n_layers=VLM_F32_LAYERS,
+                dtype="float32"), S),
+            ("audio_consistency_f32", dataclasses.replace(
+                get_config("whisper-tiny"), dtype="float32"),
+             WHISPER_PROMPT)):
+        model = model_module(cfg).init_model(cfg, seed=args.seed, device=dev)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab, size=(4, n), dtype=np.int32)).to(dev)
+        stub = stub_inputs(cfg, rng, 4, dev)      # image prefix or frames
+        prefill = make_prefill(cfg, cache_len=n)
+        decode = make_decode_step(cfg)
+        calls = flash_calls(cfg)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        full, _ = prefill(model, {"tokens": toks, **stub})
+        logits, cache = prefill(model, {"tokens": toks[:, :n - n_dec],
+                                        **stub})
+        for t in range(n - n_dec, n):
+            logits, cache = decode(model, cache, toks[:, t:t + 1], t)
+        torch.cuda.synchronize()
+        launches = {k: _build.launches()[k] for k in ("flash", "flash_sm90")}
+        seconds = time.perf_counter() - t0
+        scale = float(full.abs().max())
+        rel = float((full - logits).abs().max()) / scale
+        emit(phase=phase, arch=cfg.name, layers=[cfg.enc_layers,
+                                                 cfg.n_layers],
+             batch=4, prefill=n, prefill_then_decode=[n - n_dec, n_dec],
+             max_abs_logit=scale, rel_err=rel, tol=1e-3, launches=launches,
+             seconds=seconds)
+        del model, cache, full, logits, stub
+        torch.cuda.empty_cache()
+        check(rel < 1e-3, f"{cfg.name} f32 prefill vs prefill+decode "
+                          f"logits differ by {rel} of the largest |logit|")
+        check(launches == {"flash": 2 * calls, "flash_sm90": 0},
+              f"the {cfg.name} f32 paths launched {launches}, want flash "
+              f"{2 * calls} times and flash_sm90 never")
+        out[cfg.name] = dict(rel_err=rel, launches=launches["flash"],
+                             launches_path=phase)
+    return out
+
+
+def flash_calls(cfg) -> int:
+    """Flash launches of one bf16 or f32 prefill: one per attention layer;
+    the audio family's encoder layers, and its decoder's self and cross
+    attention, each one."""
+    if cfg.family == "audio":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def decode_bytes(cfg, batch: int, cache_len: int) -> dict:
+    """What one bf16 decode step must read, and its floor at the HBM rate:
+    every weight it multiplies, counted on a model built on the meta
+    device (the MoE's grouped dispatch multiplies every expert; the head
+    is the tied embedding or the untied ``lm_head``, and an untied
+    embedding's rows but the few gathered are not read; nor are the audio
+    encoder and the decoder's position table), and its caches, counted on
+    a cache built there too: attention k and v over ``cache_len`` slots
+    (the hybrid's ring over its window), the recurrent states, the audio
+    decoder's cross k and v over ``n_frames``."""
+    import torch
+    from repro_torch.models.common import ParamInit
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import LM, init_cache
+
+    meta = torch.device("meta")
+    init = ParamInit(None, torch.bfloat16, meta)
+    if cfg.family == "audio":
+        model = EncDec(cfg, init)
+        weights = sum(p.numel() for p in model.dec.parameters()) \
+            + sum(p.numel() for p in model.norm_dec.parameters()) \
+            + model.embed.numel()                     # the tied head
+        cache_bytes = 2 * 2 * cfg.n_layers * batch \
+            * (cache_len + cfg.n_frames) * cfg.n_kv_heads * cfg.head_dim
+    else:
+        model = LM(cfg, init)
+        weights = sum(p.numel() for p in model.parameters()) \
+            - (0 if cfg.tie_embeddings else model.embed.numel())
+
+        def leaves(c):
+            if isinstance(c, torch.Tensor):
+                return [c]
+            return [t for x in (c.values() if isinstance(c, dict) else c)
+                    for t in leaves(x)]
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(init_cache(cfg, batch, cache_len,
+                                                     device=meta)))
+    weight_bytes = 2 * weights
+    return dict(weight_bytes_per_step=weight_bytes,
+                cache_bytes_per_step=cache_bytes,
+                floor_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3)
 
 
 def moe_stage_phase(dev, gen, emit, S: int) -> None:
@@ -1997,10 +2148,11 @@ def service_phase(args, g, A, csr, topo, part, b, halo_sol, sell_err,
 
 def lm_path(args, dev, gen, emit) -> list[dict]:
     """Phases 6-9: both flash kernels against their plain version, LM
-    serving at the full width of qwen1.5-0.5b, stablelm-3b, olmoe-1b-7b
-    and granite-moe-1b-a400m, float32 prefill/decode consistency (dense
-    and MoE), LDHT expert placement, the flash kernels' numbers.  Returns
-    their two rows."""
+    serving at the full width of qwen1.5-0.5b, stablelm-3b, olmoe-1b-7b,
+    granite-moe-1b-a400m, mamba2-130m, recurrentgemma-2b, internvl2-76b
+    (32 layers) and whisper-tiny, float32 prefill/decode consistency,
+    LDHT expert placement, the flash kernels' numbers.  Returns their two
+    rows."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2012,8 +2164,7 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     from repro_torch.launch.serve import serve_tokens
     from repro_torch.models.attention import gqa_attend
     from repro_torch.models.mlp import capacity
-    from repro_torch.models.common import ParamInit
-    from repro_torch.models.transformer import (LM, decode_step, init_model,
+    from repro_torch.models.transformer import (decode_step, init_model,
                                                 layer_kinds, prefill_forward)
 
     cfg = get_config("qwen1.5-0.5b")
@@ -2043,6 +2194,12 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     H_ol, D_ol = cfg_ol.n_heads, cfg_ol.head_dim
     cfg_gr = get_config("granite-moe-1b-a400m")
     H_gr, Hkv_gr, D_gr = cfg_gr.n_heads, cfg_gr.n_kv_heads, cfg_gr.head_dim
+    cfg_iv = dataclasses.replace(get_config("internvl2-76b"),
+                                 n_layers=VLM_LAYERS)
+    H_iv, Hkv_iv, D_iv = cfg_iv.n_heads, cfg_iv.n_kv_heads, cfg_iv.head_dim
+    cfg_wh = get_config("whisper-tiny")
+    H_wh, D_wh, T_wh = cfg_wh.n_heads, cfg_wh.head_dim, cfg_wh.n_frames
+    S_wh = WHISPER_PROMPT
     cases = [  # (b, h, hkv, sq, sk, d, causal, dtype)
         (2, 4, 4, 256, 256, 64, True, f32),
         (1, 2, 2, 128, 128, 64, True, f32),
@@ -2078,11 +2235,38 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         (B, H_gr, Hkv_gr, S, S, D_gr, True, bf16),
         # stablelm-3b's prefill, flash's bf16 path
         (B, H_sl, H_sl, S, S, D_sl, True, bf16),
+        # internvl2's prefill (GQA 8:1 at head dim 128); whisper's encoder
+        # and cross attention, non-causal at lengths off the tile, and its
+        # causal self attention (224, padded to 256); a ragged non-causal
+        # call through flash's bf16 path
+        (B, H_iv, Hkv_iv, S, S, D_iv, True, bf16),
+        (B, H_wh, H_wh, T_wh, T_wh, D_wh, False, bf16),
+        (B, H_wh, H_wh, S_wh, T_wh, D_wh, False, bf16),
+        (B, H_wh, H_wh, 256, 256, D_wh, True, bf16),
+        (2, 4, 2, 300, 1000, 80, False, bf16),
+        # phase 8d's float32 prefills (GQA 8:1 at head dim 128)
+        (4, H_iv, Hkv_iv, S, S, D_iv, True, f32),
+        (4, H_iv, Hkv_iv, S - 128, S - 128, D_iv, True, f32),
+        # phase 8e's float32 encoder, cross attention and causal self
+        # attention (224 padded to 256; 96)
+        (4, H_wh, H_wh, T_wh, T_wh, D_wh, False, f32),
+        (4, H_wh, H_wh, S_wh, T_wh, D_wh, False, f32),
+        (4, H_wh, H_wh, 256, 256, D_wh, True, f32),
+        (4, H_wh, H_wh, S_wh - 128, S_wh - 128, D_wh, True, f32),
         # phase 8's float32 prefills, flash's f32 path
         (4, H, H, S - 128, S - 128, D, True, f32),
         (4, H, H, S, S, D, True, f32)]
+    # non-causal calls whose last key tile lies mostly past Sk (Sk one or
+    # twelve keys into a tile of every route, Sq off the tile): a kernel
+    # that scored the zero-filled keys past Sk would move every output by
+    # tens of percent (``unmasked_err`` below), far past the tolerance
+    tail_cases = [
+        (2, 4, 2, 100, 129, 64, False, bf16),
+        (2, 4, 2, 100, 140, 128, False, bf16),
+        (2, 4, 2, 100, 129, 80, False, bf16),
+        (2, 4, 2, 100, 129, 64, False, f32)]
     errs = {}
-    for case in cases:
+    for case in cases + tail_cases:
         b, h, hkv, sq, sk, d, causal, dt = case
         # (B, S, H, D) buffers seen as (B, H, S, D): the layout gqa_attend
         # hands the kernel
@@ -2097,10 +2281,24 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         want = flash_attention_ref(q, k, v, causal=causal)
         ok, err = close(got, want, tol, tol)
         want_kernel = routed(dt, d)
+        extra = {}
+        if case in tail_cases:
+            # the plain version with the keys past Sk zero-filled to the
+            # route's key tile and left unmasked
+            pad = -sk % KEY_TILE[want_kernel, str(dt)]
+            unmasked = flash_attention_ref(
+                q, *(F.pad(t, (0, 0, 0, pad)) for t in (k, v)),
+                causal=False)
+            extra = dict(key_tile=KEY_TILE[want_kernel, str(dt)],
+                         unmasked_err=float((unmasked.float()
+                                             - want.float()).abs().max()))
+            check(extra["unmasked_err"] > 10 * tol,
+                  f"flash {case}: an unmasked key tail would move the "
+                  f"output by only {extra['unmasked_err']}")
         emit(check="flash", shape=[b, h, sq, d], sk=sk, kv_heads=hkv,
              causal=causal, dtype=str(dt), kernel=want_kernel, launches=n,
              max_abs_err=err, tol=tol,
-             limit_share=limit_share(got, want, tol, tol), ok=ok)
+             limit_share=limit_share(got, want, tol, tol), ok=ok, **extra)
         check(n == {name: int(name == want_kernel) for name in kernels},
               f"flash {(b, h, hkv, sq, sk, d, causal, dt)} launched {n}, "
               f"want one {want_kernel}")
@@ -2111,31 +2309,58 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     torch.cuda.empty_cache()
 
     # the LM's causal attention at a length that is no tile multiple: one
-    # flash launch (on zero-padded tensors), never the plain chunked loop
-    for s, dt in ((200, torch.float32), (1000, torch.bfloat16)):
-        q, k, v = (torch.randn(2, s, H, D, generator=gen, device=dev).to(dt)
+    # flash launch (on zero-padded tensors), never the plain chunked loop;
+    # with whisper's causal self attention as its paths make it (7k at
+    # 224 in bf16, 8e at 224 and 96 in f32)
+    for b, s, h, d, dt in ((2, 200, H, D, f32), (2, 1000, H, D, bf16),
+                           (B, S_wh, H_wh, D_wh, bf16),
+                           (4, S_wh, H_wh, D_wh, f32),
+                           (4, S_wh - 128, H_wh, D_wh, f32)):
+        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
                    for _ in range(3))
         n0 = launched()
         got = gqa_attend(q, k, v)
         n = {name: launched()[name] - n0[name] for name in kernels}
         want = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)))
         ok, err = close(got, want.transpose(1, 2), tols[dt], tols[dt])
-        emit(check="flash_ragged", shape=[2, s, H, D], dtype=str(dt),
+        emit(check="flash_ragged", shape=[b, s, h, d], dtype=str(dt),
              launches=n, max_abs_err=err, tol=tols[dt], ok=ok)
-        check(sum(n.values()) == 1 and n[routed(dt, D)] == 1,
+        check(sum(n.values()) == 1 and n[routed(dt, d)] == 1,
               f"gqa_attend at S={s} launched {n}")
         check(ok, f"gqa_attend at S={s} {dt} disagrees with the plain "
                   f"attention: {err}")
+    # its non-causal attention at Sq > 1 (whisper's cross attention, as
+    # the decoder hands it over): one flash launch, no padding
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn(2, S_wh, H_wh, D_wh, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(2, T_wh, H_wh, D_wh, generator=gen, device=dev)
+                .to(dt) for _ in range(2))
+        n0 = launched()
+        got = gqa_attend(q, k, v, causal=False)
+        n = {name: launched()[name] - n0[name] for name in kernels}
+        want = flash_attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                   causal=False)
+        ok, err = close(got, want.transpose(1, 2), tols[dt], tols[dt])
+        emit(check="flash_non_causal", shape=[2, S_wh, H_wh, D_wh], sk=T_wh,
+             dtype=str(dt), launches=n, max_abs_err=err, tol=tols[dt],
+             ok=ok)
+        check(sum(n.values()) == 1 and n[routed(dt, D_wh)] == 1,
+              f"non-causal gqa_attend at {S_wh} x {T_wh} launched {n}")
+        check(ok, f"non-causal gqa_attend at {S_wh} x {T_wh} {dt} "
+                  f"disagrees with the plain attention: {err}")
     torch.cuda.synchronize()
 
     # ---- 7, 7b. LM serving at full width (the main path) ------------------
-    def serve_phase(cfg, kernel):
-        """Serve ``cfg`` (batch B, prompt S, 32 generated tokens) after a
-        gen=1 warm-up, with the counts reset just before and read just
-        after.  The prefill must launch ``kernel`` once per layer and the
-        other flash kernel never, the decode loop neither; with ``kernel``
-        None (the SSM and hybrid families) no flash kernel may launch, and
-        the hybrid's decode must wrap its local attention's ring."""
+    def serve_phase(cfg, kernel, prompt_len=S, reduced=None):
+        """Serve ``cfg`` (batch B, ``prompt_len``, 32 generated tokens)
+        after a gen=1 warm-up, with the counts reset just before and read
+        just after.  The prefill must launch ``kernel`` once per attention
+        call (``flash_calls``) and the other flash kernel never, the
+        decode loop neither; with ``kernel`` None (the SSM and hybrid
+        families) no flash kernel may launch, and the hybrid's decode must
+        wrap its local attention's ring.  ``reduced`` names the cuts of a
+        config that does not fit the card whole."""
+        S = prompt_len
         other = kernels[1 - kernels.index(kernel)] if kernel else None
         # warm-up: cuBLAS handles, and the allocator's cache, which the
         # timed run then reuses (emptying it in between made the prefill
@@ -2156,36 +2381,22 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         peak = torch.cuda.max_memory_allocated()
         ids = r["tokens"][:, S:]
         finite = bool(torch.isfinite(r["logits"].float()).all())
-        extra = {}
+        # the weights and caches a decode step reads, and their floor
+        extra = dict(family=cfg.family, decode=decode_bytes(cfg, B, S + 32))
         if cfg.family == "moe":
-            # the grouped dispatch multiplies every expert each decode
-            # step, so a step reads every weight but the embedding rows
-            # it does not gather (bf16, ModelConfig.param_count): its
-            # floor at the HBM rate
-            emb = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
-            step_bytes = (cfg.param_count - emb) * 2
-            expert_bytes = (cfg.n_layers * cfg.n_experts * 3 * cfg.d_model
-                            * cfg.d_expert * 2)
-            extra = dict(moe=dict(
+            extra["moe"] = dict(
                 experts=cfg.n_experts, top_k=cfg.top_k,
                 capacity_prefill=capacity(S, cfg.n_experts, cfg.top_k,
                                           cfg.moe_capacity),
                 capacity_decode=capacity(1, cfg.n_experts, cfg.top_k, 2.0),
-                expert_bytes_per_decode_step=expert_bytes,
-                weight_bytes_per_decode_step=step_bytes,
-                decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3))
+                expert_bytes_per_decode_step=cfg.n_layers * cfg.n_experts
+                * 3 * cfg.d_model * cfg.d_expert * 2)
         if kernel is None:
-            # a decode step reads every weight once (the tied embedding
-            # as the head; bf16, counted on a model built on the meta
-            # device): its floor at the HBM rate, the caches aside
-            meta = LM(cfg, ParamInit(None, torch.bfloat16,
-                                     torch.device("meta")))
-            step_bytes = 2 * sum(p.numel() for p in meta.parameters())
-            extra = dict(recurrent=dict(
+            extra["recurrent"] = dict(
                 layer_kinds=dict(collections.Counter(layer_kinds(cfg))),
-                weight_bytes_per_decode_step=step_bytes,
-                decode_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
-                ring=ring_report(ring)))
+                ring=ring_report(ring))
+        if reduced:
+            extra["reduced"] = reduced
         emit(phase="lm_serving", arch=cfg.name, batch=B, prompt_len=S,
              gen=32, prefill_ms=r["prefill_ms"],
              decode_ms_per_token=r["decode_ms_per_token"],
@@ -2209,13 +2420,14 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
             del r
             torch.cuda.empty_cache()
             return dict(max_memory_allocated_serving=peak)
-        check(pre[kernel] == cfg.n_layers and pre[other] == 0,
+        calls = flash_calls(cfg)
+        check(pre[kernel] == calls and pre[other] == 0,
               f"serving {cfg.name}: the prefill launched {kernel} "
               f"{pre[kernel]} and {other} {pre[other]} times, want "
-              f"{cfg.n_layers} and 0")
+              f"{calls} and 0")
         check(dec[kernel] == 0 and dec[other] == 0,
               f"serving {cfg.name}: the decode loop launched a flash kernel")
-        check(path_launches[kernel] == cfg.n_layers,
+        check(path_launches[kernel] == calls,
               f"the {cfg.name} path launched {kernel} "
               f"{path_launches[kernel]} times")
         out = dict(launches=path_launches[kernel],
@@ -2273,26 +2485,45 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     recurrent_f32_phase(args, dev, emit, S)
     emit(phase="recurrent_phases", seconds=time.perf_counter() - t0)
 
+    # ---- 7j, 7k, 8d, 8e. the VLM and audio families: flash_sm90 ----------
+    t0 = time.perf_counter()
+    internvl_serving = serve_phase(
+        cfg_iv, "flash_sm90", reduced={"n_layers": [VLM_LAYERS, 80]})
+    whisper_serving = serve_phase(cfg_wh, "flash_sm90", prompt_len=S_wh)
+    vlm_audio_f32 = vlm_audio_f32_phase(args, dev, emit, S)
+    emit(phase="vlm_audio_phases", seconds=time.perf_counter() - t0)
+
     # ---- 9. flash kernels at their paths' shapes: times, bounds ---------
-    def flash_times(shape, dt, inner):
+    def flash_times(shape, dt, inner, causal=True, kv_heads=None,
+                    sk=None):
         """Times of the kernel that ``flash_attention`` routes ``shape``
-        causal in ``dt`` to, its plain version and SDPA, and its bound at
-        the peak for ``dt``."""
+        (b, h, sq, d) in ``dt`` to (``kv_heads`` and ``sk`` default to h
+        and sq), its plain version and SDPA with the same mask and heads,
+        and its bound at the peak for ``dt``."""
         b, h, s, d = shape
-        q, k, v = (torch.randn(b, s, h, d, generator=gen, device=dev)
-                   .to(dt).transpose(1, 2) for _ in range(3))
-        nbytes = 4 * q.numel() * q.element_size()     # q, k, v in; o out
-        flops = 4 * b * h * d * s * (s + 1) / 2       # QK^T and PV, causal
+        hkv, sk = kv_heads or h, sk or s
+        q = torch.randn(b, s, h, d, generator=gen, device=dev).to(dt)
+        k, v = (torch.randn(b, sk, hkv, d, generator=gen, device=dev)
+                .to(dt).transpose(1, 2) for _ in range(2))
+        q = q.transpose(1, 2)
+        # q, k, v in; o out
+        nbytes = 2 * (q.numel() + k.numel()) * q.element_size()
+        # QK^T and PV over the keys each query sees
+        flops = 4 * b * h * d * (s * (s + 1) / 2 if causal else s * sk)
         bound, by = bound_ms(nbytes, flops, str(dt).split(".")[1])
         return dict(
-            max_abs_err=errs[(b, h, h, s, s, d, True, dt)],
-            ms=event_ms(lambda: flash_attention(q, k, v), inner=inner),
-            plain_ms=event_ms(lambda: flash_attention_ref(q, k, v), reps=5),
+            max_abs_err=errs[(b, h, hkv, s, sk, d, causal, dt)],
+            ms=event_ms(lambda: flash_attention(q, k, v, causal=causal),
+                        inner=inner),
+            plain_ms=event_ms(lambda: flash_attention_ref(
+                q, k, v, causal=causal), reps=5),
             bound_ms=bound, bound_by=by,
             library_ms=event_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), inner=inner),
-            shape=list(shape), dtype=str(dt).split(".")[1], causal=True,
-            flops=flops, bytes=nbytes)
+                q, k, v, is_causal=causal, enable_gqa=hkv != h),
+                inner=inner),
+            shape=list(shape), kv_heads=hkv, sk=sk,
+            dtype=str(dt).split(".")[1], causal=causal, flops=flops,
+            bytes=nbytes)
 
     def make_row(name, shape, serving):
         return dict(name=name, route="cuda",
@@ -2312,6 +2543,20 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         max_abs_err=errs[(B, H_gr, Hkv_gr, S, S, D_gr, True,
                           torch.bfloat16)],
         launches_path="lm_serving granite-moe-1b-a400m", **granite_serving)
+    # internvl2's prefill (GQA 8:1, head dim 128) and whisper's two
+    # non-causal calls, each read on its own path (whisper's 12 launches a
+    # prefill: 4 encoder, 4 causal self attention at 256 after padding,
+    # 4 cross attention)
+    sm90_row["internvl_path"] = dict(
+        flash_times((B, H_iv, S, D_iv), torch.bfloat16, inner=10,
+                    kv_heads=Hkv_iv),
+        launches_path=f"lm_serving {cfg_iv.name}", **internvl_serving)
+    sm90_row["whisper_path"] = dict(
+        encoder=flash_times((B, H_wh, T_wh, D_wh), torch.bfloat16,
+                            inner=10, causal=False),
+        cross=flash_times((B, H_wh, S_wh, D_wh), torch.bfloat16, inner=10,
+                          causal=False, sk=T_wh),
+        launches_path=f"lm_serving {cfg_wh.name}", **whisper_serving)
     flash_row = make_row("flash", (B, H_sl, S, D_sl), stablelm_serving)
     # flash's float32 path: 3xTF32, three TF32 products per product, so its
     # bound is 3x the flops at the TF32 peak; the CUDA-core bound (the flops
@@ -2324,6 +2569,7 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
         launches=f32_launches["flash"], launches_path="lm_consistency_f32")
     flash_row["f32_path"] = f32_path
     flash_row["moe_f32_path"] = moe_f32
+    flash_row["vlm_audio_f32_paths"] = vlm_audio_f32
     return [sm90_row, flash_row]
 
 

@@ -16,11 +16,14 @@ alone:
 Both replace the Pallas TPU kernel
 ``src/repro/kernels/flash.py::flash_attention`` (body ``_flash_kernel``)
 and keep its contract: (B, H, S, D) in, (B, H, S, D) out in q's dtype,
-scale ``D^-1/2``, float32 softmax state, tiles of ``min(128, S)`` rows that
-must divide S.  Each kernel tiles the work its own way (the design notes
-are in the sources).  Beyond the TPU kernel, k and v may have fewer heads
-than q (``Hkv`` dividing ``H``); the kernels read kv head ``h // (H //
-Hkv)`` by index.
+scale ``D^-1/2``, float32 softmax state; a causal call takes tiles of
+``min(128, S)`` rows that must divide S.  Each kernel tiles the work its
+own way (the design notes are in the sources).  Beyond the TPU kernel, k
+and v may have fewer heads than q (``Hkv`` dividing ``H``), read as kv
+head ``h // (H // Hkv)``; and a non-causal call takes any Sq and Sk, no
+tile multiple needed: both kernels mask the keys at or past Sk, load the
+rows past Sq or Sk as zeros (TMA's out-of-bounds fill, ``cp.async``'s
+zero-size copy) and store only the rows below Sq.
 
 Inputs are read through their strides (the last axis contiguous), so a
 (B, S, H, D) buffer passed as ``x.transpose(1, 2)`` is read in place, and
@@ -86,9 +89,9 @@ def _byte_strides(t: torch.Tensor) -> tuple:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, H, Sq, D); k, v: (B, Hkv, Sk, D) -> (B, H, Sq, D) in q's
-    dtype.  Softmax scale 1/sqrt(D).  Sq and Sk must be multiples of
-    ``min(128, S)``; a causal call needs Sq == Sk (the TPU kernel's mask and
-    its oracle's differ otherwise)."""
+    dtype.  Softmax scale 1/sqrt(D).  A causal call needs Sq == Sk (the
+    TPU kernel's mask and its oracle's differ otherwise), a multiple of
+    ``min(128, S)``; a non-causal call takes any Sq and Sk."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: shapes {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)} are not "
@@ -98,12 +101,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Bk != B or Dk != D or Hkv == 0 or H % Hkv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)}")
-    if Sq % min(TILE, Sq) or Sk % min(TILE, Sk):
-        raise ValueError(f"flash_attention: pad sequence to tile multiples "
-                         f"(Sq={Sq}, Sk={Sk}, tile {TILE})")
     if causal and Sq != Sk:
         raise ValueError(f"flash_attention: causal needs Sq == Sk "
                          f"(got {Sq}, {Sk})")
+    if causal and Sq % min(TILE, Sq):
+        raise ValueError(f"flash_attention: pad a causal sequence to a tile "
+                         f"multiple (S={Sq}, tile {TILE})")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device \

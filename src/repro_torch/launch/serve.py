@@ -5,6 +5,8 @@ prefill, then KV-cache decode with sampling).
     PYTHONPATH=src python -m repro_torch.launch.serve --solver --requests 64
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --batch 8 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+        --batch 8 --prompt-len 224
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 Solver serving (the paper's CG at traffic scale: many right-hand sides
@@ -48,9 +50,9 @@ from ..configs.registry import ARCHS, get_config
 from ..core.replan_policy import DriftDecision, DriftMonitor, DriftPolicy
 from ..device import resolve_device
 from ..kernels import _build
-from ..models import transformer
+from ..models import encdec
 from ..models.config import ModelConfig
-from ..models.steps import make_decode_step
+from ..models.steps import make_decode_step, make_prefill, model_module
 from ..sparse.cg import CGResult, cg_solve
 from ..sparse.graph import structure_graph
 from ..sparse.operator import make_operator
@@ -439,12 +441,32 @@ def sample(logits: torch.Tensor, temperature: float,
     return torch.argmax(logits.float() / temperature + gumbel, dim=-1)
 
 
+def stub_inputs(cfg: ModelConfig, rng: np.random.Generator, batch: int,
+                device) -> dict:
+    """What a VLM's or the audio family's stub frontend would hand the
+    model: ``img_embeds`` (batch, n_img_tokens, d_model) or ``frames``
+    (batch, n_frames, d_model), float32 normal of scale 0.02 drawn from
+    ``rng`` as the reference's launcher draws them; nothing for the other
+    families."""
+    name, rows = {"vlm": ("img_embeds", cfg.n_img_tokens),
+                  "audio": ("frames", cfg.n_frames)}.get(cfg.family,
+                                                         (None, 0))
+    if name is None:
+        return {}
+    return {name: torch.from_numpy(rng.normal(
+        scale=0.02, size=(batch, rows, cfg.d_model)).astype(
+        np.float32)).to(device)}
+
+
 def serve_tokens(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                  gen: int = 32, temperature: float = 0.8, seed: int = 0,
                  device=None) -> dict:
     """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
-    decode ``gen`` tokens each.  ``device=None`` is the card (raises
-    without one).
+    decode ``gen`` tokens each.  A VLM's prefill also takes random image
+    embeddings (batch, n_img_tokens, d_model), the audio family's random
+    frames (batch, n_frames, d_model), drawn from the prompts' generator
+    after them, as the reference does; the prefill's time includes the
+    encoder.  ``device=None`` is the card (raises without one).
 
     Returns the numbers: ``prefill_ms``, ``decode_ms_per_token`` and
     ``tok_per_s`` (None for ``gen == 0``), ``tokens`` (host int array of
@@ -452,21 +474,24 @@ def serve_tokens(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     device) and the kernel launches of the prefill and of the decode loop
     (``launches_prefill``, ``launches_decode``).
     """
+    if cfg.family == "audio":
+        encdec.check_positions(cfg, prompt_len + gen)
     dev = resolve_device(device)
-    model = transformer.init_model(cfg, seed=seed, device=dev)
+    model = model_module(cfg).init_model(cfg, seed=seed, device=dev)
+    cache_len = prompt_len + max(gen, 1)
+    prefill = make_prefill(cfg, cache_len=cache_len)
     decode = make_decode_step(cfg)
     rng = np.random.default_rng(0)
-    cache_len = prompt_len + max(gen, 1)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len),
                            dtype=np.int32)
-    tokens = torch.from_numpy(prompts).to(dev)
+    inputs = {"tokens": torch.from_numpy(prompts).to(dev),
+              **stub_inputs(cfg, rng, batch, dev)}
     if dev.type == "cuda":
         _build.build_all(["flash", "flash_sm90"])  # set-up, not prefill
 
     before = _build.launches()
     with _Timer(dev) as t_prefill:
-        logits, cache = transformer.prefill_forward(model, cfg, tokens,
-                                                    cache_len=cache_len)
+        logits, cache = prefill(model, inputs)
     mid = _build.launches()
 
     sampler = torch.Generator(device=dev).manual_seed(seed + 1)

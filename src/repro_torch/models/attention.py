@@ -1,15 +1,19 @@
 """GQA attention: full-sequence (chunked, causal / sliding-window), prefill
 and decode-with-cache paths, ported from ``src/repro/models/attention.py``.
 
-Causal full-sequence attention (no window, no query offset, Sq == Sk) goes
-to :func:`..kernels.flash.flash_attention` on every device: on the card
-that is the CUDA flash kernel, on the CPU its plain version.  A length that
-is not a multiple of the kernel's tile is zero-padded at the end and cut
-back (the causal mask hides the padded keys from every real query).  Every
-other case takes the plain chunked path, which is the reference's
-``gqa_attend`` loop.  The reference's opt-in ``causal_skip_min_seq`` /
-``_causal_chunked_skip`` (a CPU-memory workaround, off by default) is not
-ported: the flash kernel already skips the masked upper triangle.
+Full-sequence attention with no window and no query offset goes to
+:func:`..kernels.flash.flash_attention` on every device: on the card that
+is the CUDA flash kernel, on the CPU its plain version.  A causal call
+(Sq == Sk) whose length is not a multiple of the kernel's tile is
+zero-padded at the end and cut back (the causal mask hides the padded keys
+from every real query).  A non-causal call with Sq > 1 (the encoder's self
+attention, the cross attention of a prefill) goes as it is, at any Sq and
+Sk: the kernel masks the keys past Sk itself.  Every other case takes the
+plain chunked path, which is the reference's ``gqa_attend`` loop: the
+windowed and offset calls, and every decode step (Sq == 1).  The
+reference's opt-in ``causal_skip_min_seq`` / ``_causal_chunked_skip`` (a
+CPU-memory workaround, off by default) is not ported: the flash kernel
+already skips the masked upper triangle.
 
 Precision: the chunked path rounds the softmax weights to v's dtype before
 the PV product, as the reference does; the flash kernel keeps them in
@@ -93,12 +97,13 @@ def gqa_attend(q, k, v, *, causal: bool = True, window: int | None = None,
     """
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
-    if causal and window is None and q_offset == 0 and Sq == Sk:
-        pad = -Sq % min(TILE, Sq)
+    if window is None and q_offset == 0 and (
+            Sq == Sk if causal else Sq > 1):
+        pad = -Sq % min(TILE, Sq) if causal else 0
         if pad:
             q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=True)
+                              v.transpose(1, 2), causal=causal)
         return out.transpose(1, 2)[:, :Sq]
     G = Hq // Hkv
     scale = hd ** -0.5

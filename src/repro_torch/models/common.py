@@ -1,5 +1,5 @@
 """Shared model building blocks: parameter init, the recurrent layers'
-causal conv, norms, RoPE.
+causal conv, the reference's GeLU, norms, RoPE.
 
 Ported from ``src/repro/models/common.py``.  The reference creates every
 parameter through ``ParamCollector.param`` with logical axis names and maps
@@ -71,6 +71,22 @@ def conv_step(tail: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     hist = torch.cat([tail, x[:, None]], dim=1)                  # (B, K, C)
     out = (hist.float() * w.float()).sum(1).to(hist.dtype)
     return out + b, hist[:, 1:]
+
+
+# -- GeLU ---------------------------------------------------------------------
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh approximation, its default) as the
+    reference evaluates it: op by op in x's dtype, its constants rounded
+    to that dtype first (in bfloat16 sqrt(2/pi) is 0.796875).
+    ``F.gelu(approximate="tanh")`` keeps the exact constants and differs
+    from it by a bf16 ulp on about half the entries.  The dense MLP, the
+    MoE experts and the RG-LRU gate take it for ``activation="gelu"``."""
+    def r(v):
+        return float(torch.tensor(v, dtype=x.dtype))
+    cdf = r(0.5) * (1.0 + torch.tanh(
+        r(math.sqrt(2 / math.pi)) * (x + r(0.044715) * (x * x * x))))
+    return x * cdf
 
 
 # -- norms --------------------------------------------------------------------

@@ -1,12 +1,11 @@
 """Model configuration: one dataclass for all ten architectures, copied from
 ``repro.models.config`` field for field so the configs read the same.
 
-The port runs the dense, MoE, SSM and hybrid families; the enc-dec and
-VLM families' fields are kept as shape data and for
-:attr:`ModelConfig.param_count`.  ``moe_impl`` is read and takes the
-grouped dense dispatch for each of its values (one GPU has no mesh); the
-training and sharding knobs (``seq_sp``, ``remat``, ``remat_chunks``) are
-kept as fields only: nothing in the port reads them yet.
+The port runs every family: dense, MoE, SSM, hybrid, VLM and the audio
+enc-dec.  ``moe_impl`` is read and takes the grouped dense dispatch for
+each of its values (one GPU has no mesh); the training and sharding knobs
+(``seq_sp``, ``remat``, ``remat_chunks``) are kept as fields only:
+nothing in the port reads them yet.
 """
 from __future__ import annotations
 

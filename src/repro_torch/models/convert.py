@@ -7,10 +7,14 @@ for the dense family, ``"0:rec"``, ``"1:rec"``, ``"2:attn"`` for
 RecurrentGemma) and the remainder layers unstacked under
 ``tree["rem"]["<j>:<kind>"]``; with tied embeddings there is no
 ``lm_head``.  The port's layer ``l`` is the group ``l // len(unit)`` of
-``"<l % len(unit)>:<kind>"``, and past the groups remainder layer ``j``.  Weights are (in, out) for ``x @ W``
-in both packages, so leaves copy over unchanged.  An MoE layer placed by
-the reference's ``permute_expert_params`` carries a ``"perm"`` leaf beside
-its weights; it becomes the port module's ``perm`` buffer.
+``"<l % len(unit)>:<kind>"``, and past the groups remainder layer ``j``.
+The audio family's tree (``src/repro/models/encdec.py``) stacks its
+encoder and decoder layers under ``tree["enc"]`` and ``tree["dec"]``; the
+port's ``enc.<l>`` / ``dec.<l>`` is entry ``l`` of those leaves.  Weights
+are (in, out) for ``x @ W`` in both packages, so leaves copy over
+unchanged.  An MoE layer placed by the reference's
+``permute_expert_params`` carries a ``"perm"`` leaf beside its weights; it
+becomes the port module's ``perm`` buffer.
 
 bfloat16 leaves arrive as ``ml_dtypes`` arrays, which ``torch.from_numpy``
 refuses; they go through a ``uint16`` view of the same bits.
@@ -24,6 +28,7 @@ from torch import nn
 from ..device import resolve_device
 from .common import ParamInit
 from .config import ModelConfig
+from .encdec import EncDec
 from .transformer import LM, _dtype
 
 
@@ -69,24 +74,33 @@ def _layer_tree(tree, cfg: ModelConfig, l: int):
     return tree["rem"][f"{j}:{cfg.remainder[j]}"], None
 
 
-def params_from_jax(tree, cfg: ModelConfig, device=None) -> LM:
+def _locate(tree, cfg: ModelConfig, parts: list[str]):
+    """(sub-tree, keys below it, index into its stacked leaves or None) of
+    the port's parameter ``".".join(parts)``."""
+    if parts[0] == "layers":
+        sub, index = _layer_tree(tree, cfg, int(parts[1]))
+        return sub, parts[2:], index
+    if parts[0] in ("enc", "dec"):
+        return tree[parts[0]], parts[2:], int(parts[1])
+    return tree, parts, None
+
+
+def params_from_jax(tree, cfg: ModelConfig, device=None) -> LM | EncDec:
     """The reference's ``init_model`` params (numpy leaves) as an
-    :class:`LM` on ``device`` (``None`` is the card)."""
+    :class:`LM`, or for the audio family an :class:`EncDec`, on
+    ``device`` (``None`` is the card)."""
     dev = resolve_device(device)
-    model = LM(cfg, ParamInit(None, _dtype(cfg), dev))
+    make = EncDec if cfg.family == "audio" else LM
+    model = make(cfg, ParamInit(None, _dtype(cfg), dev))
     for name, param in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            leaf, index = _layer_tree(tree, cfg, int(parts[1]))
-            for key in parts[2:]:
-                leaf = leaf[key]
-            if index is not None:
-                leaf = np.asarray(leaf)[index]
-        else:
-            leaf = tree
-            for key in parts:
-                leaf = leaf[key]
+        leaf, keys, index = _locate(tree, cfg, name.split("."))
+        for key in keys:
+            leaf = leaf[key]
+        if index is not None:
+            leaf = np.asarray(leaf)[index]
         _copy(param, leaf, name)
+    if make is EncDec:
+        return model
     for l, layer in enumerate(model.layers):
         sub, index = _layer_tree(tree, cfg, l)
         perm = sub["ffn"].get("perm") if "ffn" in sub else None

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ParamInit
+from .common import ParamInit, gelu_tanh
 
 
 class MLP(nn.Module):
@@ -42,9 +42,7 @@ def mlp_forward(p: MLP, x, activation: str = "swiglu"):
 
 
 def _activate(h, activation: str):
-    # jax.nn.gelu defaults to the tanh approximation
-    return F.silu(h) if activation == "swiglu" else \
-        F.gelu(h, approximate="tanh")
+    return F.silu(h) if activation == "swiglu" else gelu_tanh(h)
 
 
 # -- MoE ----------------------------------------------------------------------

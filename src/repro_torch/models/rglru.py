@@ -23,13 +23,11 @@ no Pallas kernel here.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import ParamInit, causal_conv, conv_step
+from .common import ParamInit, causal_conv, conv_step, gelu_tanh
 
 _C = 8.0
 
@@ -58,19 +56,6 @@ class RGLRU(nn.Module):
 def init_rglru(init: ParamInit, d_model: int,
                conv_kernel: int = 4) -> RGLRU:
     return RGLRU(init, d_model, conv_kernel)
-
-
-def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu`` (the tanh approximation, its default) as the
-    reference evaluates it: op by op in x's dtype, its constants rounded
-    to that dtype first (in bfloat16 sqrt(2/pi) is 0.796875).
-    ``F.gelu(approximate="tanh")`` keeps the exact constants and differs
-    from it by a bf16 ulp on about half the entries."""
-    def r(v):
-        return float(torch.tensor(v, dtype=x.dtype))
-    cdf = r(0.5) * (1.0 + torch.tanh(
-        r(math.sqrt(2 / math.pi)) * (x + r(0.044715) * (x * x * x))))
-    return x * cdf
 
 
 def project(p: RGLRU, x: torch.Tensor):

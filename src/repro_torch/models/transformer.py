@@ -1,5 +1,6 @@
-"""Decoder LM, dense, MoE, SSM and hybrid families: full-sequence forward,
-prefill and cached decode, ported from ``src/repro/models/transformer.py``.
+"""Decoder LM, dense, MoE, SSM, hybrid and VLM families: full-sequence
+forward, prefill and cached decode, ported from
+``src/repro/models/transformer.py``.
 
 The reference stacks the layers of each repeating unit (``cfg.unit``, e.g.
 ``("rec", "rec", "attn")`` for RecurrentGemma) on a leading ``n_groups``
@@ -17,8 +18,11 @@ entry per layer: a ``(k, v)`` pair for an attention layer (a ring of
 
 Layer kinds: ``dense`` and ``moe`` (attention + MLP / MoE), ``attn`` (the
 hybrid's local attention: a dense layer whose attention takes
-``cfg.window``), ``rec`` (RG-LRU + MLP) and ``ssm`` (Mamba2).  The VLM and
-audio families raise ``NotImplementedError`` naming their ROADMAP.md item.
+``cfg.window``), ``rec`` (RG-LRU + MLP) and ``ssm`` (Mamba2).  The VLM
+family is the dense backbone whose first ``cfg.n_img_tokens`` positions
+take the image embeddings (``img_embeds``; the vision frontend is a stub,
+as in the reference).  The audio family's encoder-decoder is
+:mod:`.encdec`.
 """
 from __future__ import annotations
 
@@ -34,16 +38,13 @@ from .mlp import MoE, init_mlp, init_moe, mlp_forward, moe_forward
 from .rglru import init_rglru, rglru_decode, rglru_forward, rglru_init_cache
 from .ssm import init_ssm, ssm_decode, ssm_forward, ssm_init_cache
 
-_NOT_PORTED = {
-    "vlm": "the VLM family (ROADMAP.md queue 1 item 16)",
-    "audio": "the audio enc-dec family (ROADMAP.md queue 1 item 17)",
-}
+_NOT_PORTED: dict[str, str] = {}   # family -> what is missing; all ported
 _KINDS = ("dense", "moe", "attn", "rec", "ssm")
 
 
 def require_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is of the dense, MoE,
-    SSM or hybrid family with layers of the ported kinds."""
+    """Raise ``NotImplementedError`` unless ``cfg``'s family is ported and
+    its layers are of the ported kinds."""
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: {_NOT_PORTED[cfg.family]} is not ported yet")
@@ -163,8 +164,14 @@ def _head(params: LM, cfg: ModelConfig) -> torch.Tensor:
     return params.embed.T if cfg.tie_embeddings else params.lm_head
 
 
-def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
-    return params.embed[tokens.long()].to(_dtype(cfg))
+def _embed(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+           img_embeds: torch.Tensor | None = None):
+    """Token embeddings; a VLM's image embeddings (B, n_img_tokens, D)
+    overwrite the first ``cfg.n_img_tokens`` positions."""
+    x = params.embed[tokens.long()].to(_dtype(cfg))
+    if img_embeds is not None and cfg.n_img_tokens:
+        x[:, :cfg.n_img_tokens] = img_embeds.to(x.dtype)  # a fresh gather
+    return x
 
 
 def _ffn(p: nn.Module, h, cfg: ModelConfig, capacity_factor: float):
@@ -221,12 +228,13 @@ def _apply_layer(kind: str, p: nn.Module, x, cfg: ModelConfig, mode: str,
 
 # -- full-sequence forward ----------------------------------------------------
 
-def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor):
+def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
+            img_embeds: torch.Tensor | None = None):
     """Full-sequence forward.  Returns (logits (B, S, V_padded), aux loss):
     the MoE layers' load-balancing losses summed and divided by the number
     of layers, zero for the other families."""
     require_ported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, img_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer in zip(params.kinds, params.layers):
         x, aux, _ = _apply_layer(kind, layer, x, cfg, "forward",
@@ -273,14 +281,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
 # -- prefill ------------------------------------------------------------------
 
 def prefill_forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
-                    cache_len: int | None = None):
+                    cache_len: int | None = None,
+                    img_embeds: torch.Tensor | None = None):
     """Prefill: returns (last-token logits (B, 1, V_padded), cache).  Only
     the last position is normalised and projected onto the vocabulary.
     MoE layers dispatch with ``cfg.moe_capacity``."""
     require_ported(cfg)
     B, S = tokens.shape
     cache_len = cache_len or S
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, img_embeds)
     cache = []
     for kind, layer in zip(params.kinds, params.layers):
         x, _, c = _apply_layer(kind, layer, x, cfg, "prefill",

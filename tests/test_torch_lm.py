@@ -383,12 +383,29 @@ def test_init_model_shapes_and_seed():
                                torch.zeros_like(a.layers[0].attn.bq))
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-tiny"])
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch,module", [("internvl2-76b", "transformer"),
+                                         ("whisper-tiny", "encdec")])
+def test_vlm_and_audio_families_build(arch, module):
+    """The last two families are ported: ``model_module`` routes each to
+    its module, whose ``init_model`` builds the smoke config."""
     cfg = treg.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        ttf.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    mod = tsteps.model_module(cfg)
+    assert mod.__name__ == f"repro_torch.models.{module}"
+    model = mod.init_model(cfg, device="cpu")
+    assert model.embed.shape == (cfg.vocab_padded, cfg.d_model)
+    tsteps.make_prefill(cfg)
+
+
+def test_every_family_is_ported_and_unknown_kinds_are_refused():
+    assert ttf._NOT_PORTED == {}
+    for arch in treg.ARCHS:
+        ttf.require_ported(treg.get_config(arch, smoke=True))
+    cfg = dataclasses.replace(treg.get_config("recurrentgemma-2b",
+                                              smoke=True),
+                              pattern=("rec", "conv"))
+    with pytest.raises(NotImplementedError, match="layer kinds"):
+        ttf.require_ported(cfg)
+    with pytest.raises(NotImplementedError, match="layer kinds"):
         tsteps.make_prefill(cfg)
 
 

@@ -84,11 +84,26 @@ def test_sample_clamps_and_stays_in_range():
     assert (torch.clamp_max(tok, 299) == 299).all()
 
 
-@pytest.mark.parametrize("arch", ["internvl2-76b", "whisper-tiny"])
-def test_non_dense_arch_raises(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                    "--gen", "1"])
+@pytest.mark.parametrize("arch,name", [("internvl2-76b", "internvl2-smoke"),
+                                       ("whisper-tiny", "whisper-smoke")])
+def test_vlm_audio_arch_serves_from_the_cli(arch, name, capsys,
+                                            monkeypatch):
+    """``--arch internvl2-76b`` / ``whisper-tiny`` with ``--smoke`` serve on
+    the CPU: the reference's first line and prompt ids (the image
+    embeddings or frames are drawn after the prompts, as there), 32 + 2
+    ids printed."""
+    argv = ["--arch", arch, "--smoke", "--gen", "2"]
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    jax_main()
+    want = capsys.readouterr().out.splitlines()
+    serve.main([*argv, "--device", "cpu"])
+    got = capsys.readouterr().out.splitlines()
+    assert got[0].startswith(want[0] + " ")
+    assert got[0].startswith(f"arch={name} batch=4 prompt=32 gen=2")
+    assert "ms/token" in got[1]
+    ids = ast.literal_eval(got[2].split(":", 1)[1])
+    assert len(ids) == 34
+    assert ids[:32] == ast.literal_eval(want[2].split(":", 1)[1])[:32]
 
 
 def test_moe_arch_serves_from_the_cli(capsys, monkeypatch):
