@@ -190,8 +190,31 @@ Phases (any failure exits non-zero and prints no result line):
      cross attention, non-causal; flash: stablelm-3b's prefill in bf16 and
      phase 8's float32 prefill, nested: 8b's, 8d's and 8e's launches)
      beside its plain version, SDPA with the same mask and heads and its
-     bound; peak device memory; then the ``{"kernels": [...]}`` line;
- 10. last line: ``{"ok": true, "device": {...}}``.
+     bound; peak device memory;
+ 10a. training at the full width of qwen1.5-0.5b (bf16, batch 8, seq
+     2048, ``remat="full"``, the default AdamW, ``SyntheticLM``) through
+     ``repro_torch.train.trainer.Trainer`` for ``TRAIN_STEPS`` steps: step
+     ms (CUDA events, the median after the first), tokens/s, peak memory,
+     loss and grad norm per step, the final checkpoint's seconds and
+     bytes; every parameter's gradient finite and nonzero at the first
+     step, the last loss below the first;
+ 10d. (run right after 10a, on its model) ``flash_attention`` refuses under
+     grad on both routes (bf16 D 64 -> flash_sm90, f32 -> flash) and runs
+     under ``no_grad``; then a prefill of the trained model, whose
+     parameters still require grad, through ``make_prefill`` (the serving
+     path, under ``no_grad``): 24 flash_sm90 launches, flash never,
+     finite logits;
+ 10b. mamba2-130m at full size (batch 4, seq 256) through a fault and a
+     resume: checkpoints every 2 steps under ``build/``, a fault at step
+     5, a new Trainer that resumes from step 4 with a state bit-equal to
+     the one saved, then finite losses to step 6; save and restore
+     seconds and bytes;
+ 10c. every smoke config in float32: loss (1e-5 relative) and every
+     gradient (1e-4 of its leaf's largest |g|) on the card against the CPU
+     from the same parameters and batch; no flash launch;
+ then the ``{"kernels": [...]}`` line (flash_sm90's row carries 10d's
+ launches as ``train_path``);
+ 11. last line: ``{"ok": true, "device": {...}}``.
 
 Numbers are JSON lines tagged with the card's name and power limit.
 
@@ -2573,6 +2596,312 @@ def lm_path(args, dev, gen, emit) -> list[dict]:
     return [sm90_row, flash_row]
 
 
+# ---- 10. training ----------------------------------------------------------
+
+TRAIN_STEPS = 8                  # 10a: qwen1.5-0.5b train steps
+TRAIN_BATCH, TRAIN_SEQ = 8, 2048  # 10a: 16,384 tokens a step
+RESUME_STEPS, RESUME_FAULT = 6, 5  # 10b: mamba2-130m, checkpoints every 2
+
+
+@contextlib.contextmanager
+def grad_recorder(seen: list):
+    """Wrap ``models.steps.adamw_update`` for the call: the first train
+    step's gradients reach it, and it records, per parameter, whether the
+    gradient is finite and whether it has a nonzero entry (one host read;
+    later steps pass through untouched)."""
+    import torch
+    from repro_torch.models import steps
+    real = steps.adamw_update
+
+    def wrapped(cfg, params, grads, state):
+        if not seen:
+            flags = torch.stack([torch.stack([torch.isfinite(g).all(),
+                                              (g != 0).any()])
+                                 for g in grads.values()]).cpu()
+            seen.append({n: (bool(f[0]), bool(f[1]))
+                         for n, f in zip(grads, flags)})
+        return real(cfg, params, grads, state)
+
+    steps.adamw_update = wrapped
+    try:
+        yield seen
+    finally:
+        steps.adamw_update = real
+
+
+@contextlib.contextmanager
+def save_clock(saves: list):
+    """Wrap the trainer's ``save_checkpoint`` for the call: the seconds and
+    bytes of each save."""
+    from repro_torch.train import trainer
+    real = trainer.save_checkpoint
+
+    def wrapped(*a, **k):
+        t0 = time.perf_counter()
+        path = real(*a, **k)
+        saves.append(dict(step=a[2], seconds=time.perf_counter() - t0,
+                          bytes=(path / "state.npz").stat().st_size))
+        return path
+
+    trainer.save_checkpoint = wrapped
+    try:
+        yield saves
+    finally:
+        trainer.save_checkpoint = real
+
+
+def train_path(args, dev, emit) -> dict:
+    """Phase 10: training on the card through ``train.trainer.Trainer``.
+    10a qwen1.5-0.5b at full width (bf16, ``TRAIN_BATCH`` x ``TRAIN_SEQ``,
+    ``TRAIN_STEPS`` steps, ``remat="full"``, the default AdamW on
+    ``SyntheticLM``); 10d right after it, on its trained model: flash
+    refuses under grad on both routes, then a prefill under the serving
+    path launches ``flash_sm90`` once per layer and ``flash`` never; 10b
+    mamba2-130m (batch 4, seq 256) through a fault and a resume from its
+    checkpoints; 10c each smoke config's loss and gradients in float32 on
+    the card against the CPU from the same parameters.  Returns 10d's
+    launches for the kernels line."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.registry import ARCHS, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash import flash_attention
+    from repro_torch.models.steps import (loss_and_grads, make_prefill,
+                                          model_module)
+    from repro_torch.train.checkpoint import flatten_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    kernels = ("flash", "flash_sm90")
+    ckpt_root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+
+    # ---- 10a. qwen1.5-0.5b at full width --------------------------------
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen1.5-0.5b")
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, ckpt_every=TRAIN_STEPS,
+                         ckpt_dir=str(ckpt_root / "qwen"),
+                         log_every=TRAIN_STEPS + 1, seed=args.seed)
+    tr = Trainer(cfg, tcfg, device=dev)
+    step_ms, metrics = [], []
+
+    def timed(step_fn):
+        def run(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            return out
+        return run
+
+    tr.train_step = timed(tr.train_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seen, saves = [], []
+    t0 = time.perf_counter()
+    with grad_recorder(seen), save_clock(saves):
+        losses = tr.run(on_metrics=lambda step, m: metrics.append(
+            dict(step=step, loss=float(m["loss"]),
+                 grad_norm=float(m["grad_norm"]), lr=float(m["lr"]))))
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(step_ms[1:])
+    first = seen[0]
+    bad = sorted(n for n, (fin, nz) in first.items() if not (fin and nz))
+    n_params = sum(p.numel() for p in tr.state["params"].parameters())
+    emit(phase="train", arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         tokens_per_step=TRAIN_BATCH * TRAIN_SEQ, steps=TRAIN_STEPS,
+         remat=cfg.remat, dtype=cfg.dtype, params=n_params,
+         step_ms=steady, first_step_ms=step_ms[0], step_ms_all=step_ms,
+         host_step_s=tr.step_times,
+         tok_per_s=TRAIN_BATCH * TRAIN_SEQ / (steady / 1e3),
+         max_memory_allocated=peak, per_step=metrics,
+         params_with_grad=len(first), params_bad_grad=bad,
+         checkpoint=saves[-1], run_seconds=run_s,
+         shares=tr.shares.tolist())
+    check(not bad and len(first) == len(list(
+        tr.state["params"].parameters())),
+        f"train {cfg.name}: parameters without a finite nonzero gradient "
+        f"after the first step: {bad[:8]}")
+    check(all(np.isfinite(losses)), f"train {cfg.name}: loss {losses}")
+    check(losses[-1] < losses[0], f"train {cfg.name}: the loss did not "
+                                  f"fall: {losses}")
+    shutil.rmtree(ckpt_root / "qwen", ignore_errors=True)
+
+    # ---- 10d. flash refuses under grad; serving the trained model --------
+    refusals = {}
+    for dt, route in ((torch.bfloat16, "flash_sm90"),
+                      (torch.float32, "flash")):
+        q, k, v = (torch.randn(2, 4, 256, 64, device=dev, dtype=dt)
+                   for _ in range(3))
+        q.requires_grad_(True)
+        _build.reset_launches()
+        try:
+            flash_attention(q, k, v)
+            refused = False
+        except RuntimeError as e:
+            refused = "no backward" in str(e)
+        n = {name: _build.launches()[name] for name in kernels}
+        with torch.no_grad():
+            out = flash_attention(q, k, v)
+        ran = {name: _build.launches()[name] - n[name] for name in kernels}
+        refusals[route] = dict(refused=refused, launches_refused=n,
+                               launches_no_grad=ran,
+                               finite=bool(torch.isfinite(out.float()).all()))
+        check(refused and not any(n.values()),
+              f"flash_attention under grad ({dt}) did not refuse: {n}")
+        check(ran == {name: int(name == route) for name in kernels},
+              f"flash_attention under no_grad ({dt}) launched {ran}, "
+              f"want one {route}")
+    model = tr.state["params"]
+    del tr
+    toks = torch.from_numpy(np.random.default_rng(args.seed + 5).integers(
+        0, cfg.vocab, size=(TRAIN_BATCH, TRAIN_SEQ), dtype=np.int32)).to(dev)
+    prefill = make_prefill(cfg, cache_len=TRAIN_SEQ)
+    prefill(model, {"tokens": toks})                 # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    logits, cache = prefill(model, {"tokens": toks})
+    end.record()
+    end.synchronize()
+    serve_launches = {name: _build.launches()[name] for name in kernels}
+    finite = bool(torch.isfinite(logits.float()).all())
+    trainable = all(p.requires_grad for p in model.parameters())
+    emit(phase="train_then_serve", arch=cfg.name, refusals=refusals,
+         prefill_batch=TRAIN_BATCH, prompt_len=TRAIN_SEQ,
+         prefill_ms=start.elapsed_time(end), launches=serve_launches,
+         finite_logits=finite, params_require_grad=trainable,
+         logits_require_grad=logits.requires_grad)
+    check(serve_launches == {"flash": 0, "flash_sm90": cfg.n_layers},
+          f"the trained {cfg.name}'s prefill launched {serve_launches}, want "
+          f"flash_sm90 {cfg.n_layers} times and flash never")
+    check(finite and trainable and not logits.requires_grad,
+          f"the trained {cfg.name}'s prefill: finite {finite}, "
+          f"parameters trainable {trainable}")
+    del model, logits, cache
+    torch.cuda.empty_cache()
+
+    # ---- 10b. mamba2-130m: a fault, then a resume ------------------------
+    cfg_m = get_config("mamba2-130m")
+    kw = dict(steps=RESUME_STEPS, seq_len=256, global_batch=4, ckpt_every=2,
+              ckpt_dir=str(ckpt_root / "mamba2"), log_every=RESUME_STEPS + 1,
+              seed=args.seed)
+    tr = Trainer(cfg_m, TrainerConfig(**kw, fail_at_step=RESUME_FAULT),
+                 device=dev)
+    snap, saves = {}, []
+
+    def snapshot(step, m):
+        if step == RESUME_FAULT - 1:   # the state the last save writes
+            snap.update({k: t.detach().clone() for k, t in
+                         flatten_state(tr.state).items()})
+
+    t0 = time.perf_counter()
+    fault = None
+    with save_clock(saves):
+        try:
+            first_losses = tr.run(on_metrics=snapshot)
+        except RuntimeError as e:
+            fault = str(e)
+    first_s = time.perf_counter() - t0
+    del tr
+    tr = Trainer(cfg_m, TrainerConfig(**kw), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = tr.maybe_resume()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    got = flatten_state(tr.state)
+    diff = sorted(k for k, t in snap.items()
+                  if k not in got or got[k].dtype != t.dtype
+                  or not torch.equal(got[k], t))
+    resumed_at = tr.step
+    with save_clock(saves):
+        losses = tr.run()
+    emit(phase="train_resume", arch=cfg_m.name, batch=4, seq=256,
+         steps=RESUME_STEPS, fault=fault, resumed=resumed,
+         resumed_at=resumed_at, restored_keys=len(got),
+         restored_not_equal=diff, saves=saves, restore_seconds=restore_s,
+         first_run_seconds=first_s, resumed_losses=losses,
+         bytes=saves[-1]["bytes"])
+    check(fault is not None and "injected fault" in fault,
+          f"train_resume: the first run did not fault ({fault})")
+    check(resumed and resumed_at == RESUME_FAULT - 1,
+          f"train_resume: resumed {resumed} at step {resumed_at}")
+    check(len(snap) == len(got) and not diff,
+          f"train_resume: restored state differs from the saved one: "
+          f"{diff[:8]}")
+    check(len(losses) == RESUME_STEPS - resumed_at
+          and all(np.isfinite(losses)),
+          f"train_resume: resumed losses {losses}")
+    del tr, snap, got
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 10c. float32 gradients, card against CPU -------------------------
+    rng = np.random.default_rng(args.seed + 6)
+    worst = {}
+    for arch in ARCHS:
+        cfg_s = get_config(arch, smoke=True)
+        cpu = model_module(cfg_s).init_model(cfg_s, seed=args.seed,
+                                             device="cpu")
+        cpu.requires_grad_(True)
+        card = copy.deepcopy(cpu).to(dev)
+        B, S = 2, 32
+        batch = {"tokens": rng.integers(0, cfg_s.vocab, (B, S)).astype(
+                     np.int32),
+                 "labels": rng.integers(0, cfg_s.vocab, (B, S)).astype(
+                     np.int32)}
+        if cfg_s.family == "vlm":
+            batch["img_embeds"] = rng.normal(scale=0.02, size=(
+                B, cfg_s.n_img_tokens, cfg_s.d_model)).astype(np.float32)
+        if cfg_s.family == "audio":
+            batch["frames"] = rng.normal(scale=0.02, size=(
+                B, cfg_s.n_frames, cfg_s.d_model)).astype(np.float32)
+        _build.reset_launches()
+        l_cpu, g_cpu = loss_and_grads(cpu, cfg_s, {
+            k: torch.from_numpy(v) for k, v in batch.items()})
+        l_card, g_card = loss_and_grads(card, cfg_s, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        launches = {name: _build.launches()[name] for name in kernels}
+        rel_loss = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        errs = {}
+        for n, g in g_cpu.items():
+            scale = float(g.abs().max())
+            err = float((g_card[n].cpu() - g).abs().max())
+            errs[n] = err / scale if scale else err
+        name = max(errs, key=errs.get)
+        finite = all(bool(torch.isfinite(g).all())
+                     for g in g_card.values())
+        worst[cfg_s.name] = errs[name]
+        emit(phase="grad_consistency_f32", arch=cfg_s.name, batch=B, seq=S,
+             params=len(errs), loss_cpu=float(l_cpu),
+             loss_card=float(l_card), rel_loss=rel_loss, loss_tol=1e-5,
+             worst_param=name, worst_grad_err=errs[name], grad_tol=1e-4,
+             finite=finite, launches=launches)
+        check(rel_loss <= 1e-5, f"{cfg_s.name}: card loss {float(l_card)} "
+              f"against CPU {float(l_cpu)}")
+        check(errs[name] <= 1e-4, f"{cfg_s.name}: gradient of {name} "
+              f"differs by {errs[name]} of its largest |g|")
+        check(finite, f"{cfg_s.name}: non-finite gradient on the card")
+        check(not any(launches.values()), f"{cfg_s.name}: a gradient "
+              f"path launched {launches}")
+        del cpu, card, g_cpu, g_card
+    emit(phase="train_phases", seconds=time.perf_counter() - t_phase)
+    torch.cuda.empty_cache()
+    return dict(launches=serve_launches["flash_sm90"],
+                launches_path=f"train_then_serve {cfg.name}",
+                shape=[TRAIN_BATCH, cfg.n_heads, TRAIN_SEQ, cfg.head_dim])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--side", type=int, default=1024,
@@ -2617,6 +2946,8 @@ def main(argv=None) -> int:
     rows = sparse_path(args, dev, gen, emit)
     torch.cuda.empty_cache()
     rows += lm_path(args, dev, gen, emit)
+    torch.cuda.empty_cache()
+    rows[-2]["train_path"] = train_path(args, dev, emit)   # flash_sm90's row
 
     emit(phase="total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": rows}))

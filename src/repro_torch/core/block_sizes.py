@@ -10,7 +10,9 @@ m_cap, compute target weights tw(b_i) that
 Greedy water-filling: sort PUs by decreasing c_s/m_cap; assign each its
 proportional share of the *remaining* load, clamped to its memory.
 
-  * ``waterfill`` / ``target_block_sizes`` — host NumPy, copied from
+  * ``waterfill`` / ``target_block_sizes`` and the tree form
+    ``tree_target_block_sizes``, the Lemma 1 diagnostic ``saturated_mask``
+    and the trainer's ``hetero_batch_split`` — host NumPy, copied from
     ``src/repro/core/block_sizes.py`` and bit-equal to it.
   * ``target_block_sizes_torch`` — the tensor form of the reference's
     ``target_block_sizes_jax``: the closed form over all k+1 saturated
@@ -80,6 +82,49 @@ def target_block_sizes(n: float, topo: Topology,
     return tw
 
 
+def tree_target_block_sizes(n: float, topo: Topology, tree=None,
+                            fanouts=None) -> np.ndarray:
+    """Tree-aware Algorithm 1 — returns leaf tw in the ORIGINAL PU order.
+
+    Water-fills top-down: the root's load is split among the depth-1
+    subtrees by *aggregate* speed under *aggregate* memory, then each
+    subtree splits its share among its children, down to the leaves.  A
+    saturated member inside an unsaturated subtree is absorbed by its
+    siblings at the innermost level.  Coincides with the flat
+    :func:`target_block_sizes` whenever no PU saturates (proportional
+    shares compose), and with it per subtree when one does.
+
+    ``tree`` is anything ``topology.normalize_tree_of`` accepts (pod
+    count, pod array, (h-1, k) ancestor table); default is the canonical
+    table of ``fanouts`` (default ``topo.fanouts``).
+    """
+    from .topology import normalize_tree_of
+    if not topo.feasible(n):
+        raise ValueError(
+            f"infeasible: load {n} exceeds total memory {topo.total_memory}")
+    anc = normalize_tree_of(tree, topo.k,
+                            fanouts if (fanouts is not None or
+                                        tree is not None) else topo.fanouts)
+    speeds, mems = topo.speeds, topo.memories
+    tw = np.zeros(topo.k, dtype=np.float64)
+
+    def rec(pus: np.ndarray, anc_sub: np.ndarray, load: float) -> None:
+        if anc_sub.shape[0] == 0:
+            tw[pus] = waterfill(load, speeds[pus], mems[pus])
+            return
+        top = anc_sub[0]
+        gids = np.unique(top)
+        wg = np.array([speeds[pus[top == g]].sum() for g in gids])
+        cg = np.array([mems[pus[top == g]].sum() for g in gids])
+        shares = waterfill(load, wg, cg)
+        for share, gid in zip(shares, gids):
+            sel = top == gid
+            rec(pus[sel], anc_sub[1:, sel], float(share))
+
+    rec(np.arange(topo.k), anc, float(n))
+    return tw
+
+
 def _round_preserving_sum(tw: np.ndarray, total: int,
                           mems: np.ndarray) -> np.ndarray:
     """Largest-remainder rounding, keeping sum == total and tw <= m_cap."""
@@ -99,6 +144,24 @@ def _round_preserving_sum(tw: np.ndarray, total: int,
     if deficit != 0:
         raise ValueError("could not round block sizes within memory caps")
     return out
+
+
+def saturated_mask(n: float, topo: Topology) -> np.ndarray:
+    """Which PUs end up saturated (tw == m_cap) — Lemma 1 diagnostics."""
+    tw = target_block_sizes(n, topo)
+    return np.isclose(tw, topo.memories) & (tw < n * topo.speeds /
+                                            topo.total_speed + 1e-9)
+
+
+def hetero_batch_split(global_batch: int, topo: Topology) -> np.ndarray:
+    """Per-PU batch share for heterogeneous data parallelism.
+
+    Algorithm 1 with load = global_batch, memory in units of 'max
+    microbatch that fits on the PU'.  Returns integral shares summing to
+    global_batch.
+    """
+    return target_block_sizes(float(global_batch), topo,
+                              integral=True).astype(np.int64)
 
 
 def max_load_ratio(tw: np.ndarray, topo: Topology) -> float:

@@ -34,6 +34,14 @@ back without a transpose copy.
 Tensors on the CPU go to the plain version
 (:func:`.ref.flash_attention_ref`); on any other device the wrapper
 launches the kernel its route names or raises.
+
+Neither kernel has a backward, nor has the TPU kernel (``jax.grad``
+through it raises).  So the wrapper raises ``RuntimeError`` on every
+device, the CPU's plain route included, when grad mode is on and q, k or
+v requires grad: a kernel's output written through ctypes has no autograd
+history, and the gradients of the projections before it would be lost
+without an error.  Serving calls it under ``torch.no_grad()``; training
+takes the plain attention.
 """
 from __future__ import annotations
 
@@ -81,6 +89,13 @@ def flash_route(dtype: torch.dtype, head_dim: int, byte_strides,
     return route
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record an op on ``tensors``: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in tensors)
+
+
 def _byte_strides(t: torch.Tensor) -> tuple:
     return tuple(None if n == 1 else s * t.element_size()
                  for n, s in zip(t.shape, t.stride()))
@@ -107,6 +122,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and Sq % min(TILE, Sq):
         raise ValueError(f"flash_attention: pad a causal sequence to a tile "
                          f"multiple (S={Sq}, tile {TILE})")
+    if needs_grad(q, k, v):
+        raise RuntimeError("flash_attention has no backward: call it under "
+                           "torch.no_grad(), or take the plain attention "
+                           "(models.attention.gqa_attend does) where a "
+                           "gradient is needed")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_ref(q, k, v, causal=causal)
     if q.device.type != "cuda" or k.device != q.device \

@@ -1,1 +1,3 @@
-"""Launchers: ``serve`` (token serving: prefill + KV-cache decode)."""
+"""Launchers: ``serve`` (token serving: prefill + KV-cache decode; CG
+solver serving) and ``train`` (the training CLI over
+``train.trainer.Trainer``)."""

@@ -466,7 +466,10 @@ def serve_tokens(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     embeddings (batch, n_img_tokens, d_model), the audio family's random
     frames (batch, n_frames, d_model), drawn from the prompts' generator
     after them, as the reference does; the prefill's time includes the
-    encoder.  ``device=None`` is the card (raises without one).
+    encoder.  ``device=None`` is the card (raises without one).  The
+    prefill and decode steps come from ``models.steps``'s factories, which
+    run under ``torch.no_grad()``: the prefill takes the flash kernels
+    whatever the parameters' ``requires_grad``.
 
     Returns the numbers: ``prefill_ms``, ``decode_ms_per_token`` and
     ``tok_per_s`` (None for ``gen == 0``), ``tokens`` (host int array of

@@ -4,5 +4,6 @@
 kernel on the card), ``mlp`` (the dense MLP and the token-choice MoE),
 ``ssm`` (Mamba2 / SSD), ``rglru`` (RecurrentGemma's RG-LRU),
 ``transformer`` (the model as ``nn.Module``s, forward / prefill / decode),
-``steps`` (prefill and decode factories) and ``convert`` (the JAX
+``encdec`` (the audio encoder-decoder), ``steps`` (the loss, the train
+step and the prefill and decode factories) and ``convert`` (the JAX
 package's parameter tree, as numpy arrays, into the port's modules)."""

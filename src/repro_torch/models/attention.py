@@ -10,7 +10,9 @@ from every real query).  A non-causal call with Sq > 1 (the encoder's self
 attention, the cross attention of a prefill) goes as it is, at any Sq and
 Sk: the kernel masks the keys past Sk itself.  Every other case takes the
 plain chunked path, which is the reference's ``gqa_attend`` loop: the
-windowed and offset calls, and every decode step (Sq == 1).  The
+windowed and offset calls, every decode step (Sq == 1), and every call
+that needs a gradient (the kernels have no backward; the reference trains
+through this loop too).  The
 reference's opt-in ``causal_skip_min_seq`` / ``_causal_chunked_skip`` (a
 CPU-memory workaround, off by default) is not ported: the flash kernel
 already skips the masked upper triangle.
@@ -29,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash import TILE, flash_attention
+from ..kernels.flash import TILE, flash_attention, needs_grad
 from .common import ParamInit, apply_rope, rope_inv_freq, rope_table
 
 _NEG = -1e30
@@ -93,11 +95,14 @@ def gqa_attend(q, k, v, *, causal: bool = True, window: int | None = None,
 
     ``q_offset`` is the absolute position of q[0] (for windows).  The plain
     path walks query chunks; each step computes a (chunk, Sk) strip of
-    scores in float32.
+    scores in float32.  Where a gradient is needed (grad mode on and q, k
+    or v requiring grad) every call takes the plain path, which autograd
+    differentiates: it is the reference's training attention, rounding
+    included.
     """
     B, Sq, Hq, hd = q.shape
     _, Sk, Hkv, _ = k.shape
-    if window is None and q_offset == 0 and (
+    if window is None and q_offset == 0 and not needs_grad(q, k, v) and (
             Sq == Sk if causal else Sq > 1):
         pad = -Sq % min(TILE, Sq) if causal else 0
         if pad:

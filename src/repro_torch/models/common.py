@@ -6,8 +6,10 @@ parameter through ``ParamCollector.param`` with logical axis names and maps
 them to mesh axes (``logical_to_spec``, ``maybe_constrain``); one GPU has no
 mesh, so :class:`ParamInit` keeps only the values: the same shapes, the same
 initializers and the same order of draws, from an explicit
-``torch.Generator``.  Parameters are ``nn.Parameter`` with
-``requires_grad=False`` (serving only; training waits).
+``torch.Generator``.  Parameters are made ``nn.Parameter`` with
+``requires_grad=False``, so serving records no autograd graph; the
+trainer (``repro_torch.train.trainer``) alone calls ``requires_grad_(True)``
+on its model.
 """
 from __future__ import annotations
 
@@ -152,3 +154,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     c = cos[..., :, None, :]
     s = sin[..., :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# -- loss ---------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token cross entropy in float32: logsumexp minus the gold logit.
+    logits (..., V), labels (...) integer; with ``mask`` (...) the sum of
+    the masked losses over ``max(sum(mask), 1)``."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)

@@ -3,9 +3,11 @@
 
 The port runs every family: dense, MoE, SSM, hybrid, VLM and the audio
 enc-dec.  ``moe_impl`` is read and takes the grouped dense dispatch for
-each of its values (one GPU has no mesh); the training and sharding knobs
-(``seq_sp``, ``remat``, ``remat_chunks``) are kept as fields only:
-nothing in the port reads them yet.
+each of its values (one GPU has no mesh).  ``remat`` is read by a
+forward that needs a gradient (``"full"`` or ``"none"``; the other
+policies and ``remat_chunks > 1`` raise, see
+``transformer.remat_layers``); ``seq_sp``, a sharding knob, is kept as a
+field only.
 """
 from __future__ import annotations
 

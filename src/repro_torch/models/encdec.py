@@ -41,7 +41,8 @@ from .attention import (attn_decode, attn_forward, attn_prefill,
 from .common import ParamInit, apply_norm, init_norm
 from .config import ModelConfig
 from .mlp import init_mlp, mlp_forward
-from .transformer import _dtype
+from ..kernels.flash import needs_grad
+from .transformer import _dtype, remat_layers, run_layer
 
 
 @functools.lru_cache(maxsize=8)
@@ -133,17 +134,23 @@ def _mlp(p: nn.Module, x, cfg: ModelConfig):
                            cfg.activation)
 
 
+def _enc_layer(p: EncLayer, x, cfg: ModelConfig):
+    h = apply_norm(cfg.norm, x, p.norm1)
+    x = x + attn_forward(p.attn, h, causal=False, **_attn_kw(cfg))
+    return _mlp(p, x, cfg)
+
+
 def encode(params: EncDec, cfg: ModelConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, T, D) stub embeddings -> the encoder's states (B, T,
-    D) in the model's dtype."""
+    D) in the model's dtype.  Where a gradient is needed, each layer runs
+    under remat as ``transformer.remat_layers`` says."""
     dt = _dtype(cfg)
+    remat = needs_grad(*params.parameters()) and remat_layers(cfg)
     x = frames.to(dt) + _sinusoid(frames.shape[1], cfg.d_model).to(
         frames.device, dt)
     for p in params.enc:
-        h = apply_norm(cfg.norm, x, p.norm1)
-        x = x + attn_forward(p.attn, h, causal=False, **_attn_kw(cfg))
-        x = _mlp(p, x, cfg)
+        x = run_layer(_enc_layer, p, x, cfg, remat=remat)
     return apply_norm(cfg.norm, x, params.norm_enc)
 
 
@@ -171,19 +178,27 @@ def _logits(params: EncDec, cfg: ModelConfig, x: torch.Tensor):
     return x @ params.embed.T.to(x.dtype)
 
 
+def _dec_layer(p: DecLayer, x, enc_out, cfg: ModelConfig):
+    h = apply_norm(cfg.norm, x, p.norm1)
+    x = x + attn_forward(p.attn, h, causal=True, **_attn_kw(cfg))
+    h = apply_norm(cfg.norm, x, p.norm_x)
+    x = x + _cross_attend(p.xattn, h, *_cross_kv(p.xattn, enc_out, cfg),
+                          cfg)
+    return _mlp(p, x, cfg)
+
+
 def forward(params: EncDec, cfg: ModelConfig, frames: torch.Tensor,
             tokens: torch.Tensor):
     """Full-sequence forward.  Returns (logits (B, S, V_padded), aux =
-    0)."""
+    0).  Where a gradient is needed, each encoder and decoder layer runs
+    under remat as ``transformer.remat_layers`` says (the reference
+    remats the audio family's layers whatever ``cfg.remat`` says; remat
+    changes memory, not values)."""
     enc_out = encode(params, cfg, frames)
+    remat = needs_grad(*params.parameters()) and remat_layers(cfg)
     x = _dec_embed(params, cfg, tokens)
     for p in params.dec:
-        h = apply_norm(cfg.norm, x, p.norm1)
-        x = x + attn_forward(p.attn, h, causal=True, **_attn_kw(cfg))
-        h = apply_norm(cfg.norm, x, p.norm_x)
-        x = x + _cross_attend(p.xattn, h, *_cross_kv(p.xattn, enc_out, cfg),
-                              cfg)
-        x = _mlp(p, x, cfg)
+        x = run_layer(_dec_layer, p, x, enc_out, cfg, remat=remat)
     return _logits(params, cfg, x), torch.zeros((), dtype=torch.float32,
                                                  device=x.device)
 

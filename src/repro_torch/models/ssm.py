@@ -12,7 +12,8 @@ The reference writes SSD's contractions as three- and four-operand
 ``einsum``s.  Here each is a sequence of explicit pairwise products (a
 broadcast multiply and one batched ``matmul``), so no contraction order is
 left to a planner: the largest intermediate is the (B, H, nc, c, c) decay
-matrix itself, which is masked, exponentiated and weighted in place.
+matrix itself, which serving masks, exponentiates and weights in place
+(training forms it out of place, for autograd).
 
 The stages (:func:`split_proj`, the causal conv with SiLU, :func:`ssd`,
 :func:`gate_norm`, the output projection; :func:`ssd_step` in decode) are
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.flash import needs_grad
 from .common import ParamInit, causal_conv, conv_step, rmsnorm
 
 
@@ -88,11 +90,17 @@ def _chunk(S: int, chunk: int) -> int:
 def ssd(p: SSM, xs, Bm, Cm, dt, *, headdim: int, chunk: int = 256):
     """Chunked SSD over post-conv ``xs`` (B, S, d_in), ``Bm``, ``Cm`` (B,
     S, N) and the raw ``dt`` (B, S, H).  Returns (y (B, S, H, P) float32
-    with the skip term ``D x`` added, final state (B, H, P, N) float32)."""
+    with the skip term ``D x`` added, final state (B, H, P, N) float32).
+
+    When a gradient is needed (grad mode on and an input or parameter
+    requiring grad) the decay matrix and the output are formed out of
+    place, since autograd keeps the tensors the in-place form overwrites;
+    otherwise (serving) they are weighted in place."""
     Bsz, S, d_in = xs.shape
     N = Bm.shape[-1]
     P = headdim
     H = d_in // P
+    grad = needs_grad(xs, Bm, Cm, dt, p.A_log, p.D, p.dt_bias)
     a = -torch.exp(p.A_log.float())                              # (H,)
     dt = F.softplus(dt.float() + p.dt_bias.float())              # (B,S,H)
     c = _chunk(S, chunk)
@@ -106,10 +114,13 @@ def ssd(p: SSM, xs, Bm, Cm, dt, *, headdim: int, chunk: int = 256):
     xdt_h = xdt.permute(0, 3, 1, 2, 4)                           # (B,H,nc,c,P)
 
     # intra-chunk: y_diag[b,c,l,h,:] = sum_s (C_l . B_s) L[b,h,c,l,s] xdt_s
-    L = _segsum(dA).exp_()                                       # (B,H,nc,c,c)
-    L.mul_((Cc @ Bc.transpose(-1, -2))[:, None])                 # x (B,1,nc,c,c)
+    CB = (Cc @ Bc.transpose(-1, -2))[:, None]                    # (B,1,nc,c,c)
+    if grad:        # autograd keeps exp's output: no in-place write to it
+        L = _segsum(dA).exp() * CB
+    else:           # serving: one (B,H,nc,c,c) buffer, weighted in place
+        L = _segsum(dA).exp_().mul_(CB)
     y = L @ xdt_h                                                # (B,H,nc,c,P)
-    del L
+    del L, CB
 
     # chunk states: states[b,c,h,:,n] = sum_l decay_l xdt_l B_l[n]
     A_cum = torch.cumsum(dA, dim=-1)                             # (B,H,nc,c)
@@ -127,7 +138,10 @@ def ssd(p: SSM, xs, Bm, Cm, dt, *, headdim: int, chunk: int = 256):
 
     # state -> output: y_off[b,c,l,h,:] = exp(A_cum_l) (prev_c C_l)
     y_off = Cc[:, None] @ prev.transpose(-1, -2)                 # (B,H,nc,c,P)
-    y.add_(y_off.mul_(torch.exp(A_cum)[..., None]))
+    if grad:
+        y = y + y_off * torch.exp(A_cum)[..., None]
+    else:
+        y.add_(y_off.mul_(torch.exp(A_cum)[..., None]))
     y = y.permute(0, 2, 3, 1, 4).reshape(Bsz, S, H, P)
     y = y + p.D.float()[None, None, :, None] \
         * xs.reshape(Bsz, S, H, P).float()

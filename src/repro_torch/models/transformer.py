@@ -8,8 +8,11 @@ axis and runs them with ``lax.scan`` under ``jax.checkpoint``; the
 ``cfg.remainder`` layers get unstacked parameters.  Here the model is an
 ``nn.Module`` holding one layer module per layer in an ``nn.ModuleList``
 (layer ``l`` of kind ``unit[l % len(unit)]`` for the ``n_groups`` groups,
-then the remainder), run by a Python loop (no remat: that is a training
-concern).  The parameter names mirror the reference's tree (``embed``,
+then the remainder), run by a Python loop.  Where a gradient is needed and
+``cfg.remat == "full"`` (every config's default), :func:`forward` runs each
+layer under ``torch.utils.checkpoint`` (its activations recomputed in the
+backward), as the reference runs each group under ``jax.checkpoint``; see
+:func:`remat_layers`.  The parameter names mirror the reference's tree (``embed``,
 ``layers.<l>.attn.wq``, ..., ``final_norm.scale``, ``lm_head``) so
 :mod:`.convert` maps one onto the other.  The cache is a list with one
 entry per layer: a ``(k, v)`` pair for an attention layer (a ring of
@@ -28,8 +31,10 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..kernels.flash import needs_grad
 from .attention import attn_decode, attn_forward, attn_prefill, \
     init_attention
 from .common import ParamInit, apply_norm, init_norm
@@ -228,17 +233,48 @@ def _apply_layer(kind: str, p: nn.Module, x, cfg: ModelConfig, mode: str,
 
 # -- full-sequence forward ----------------------------------------------------
 
+def remat_layers(cfg: ModelConfig) -> bool:
+    """Whether a forward that needs a gradient recomputes each layer in the
+    backward: ``cfg.remat`` ``"full"`` (the reference's ``jax.checkpoint``
+    of each scanned group) yes, ``"none"`` no.  The reference's ``"dots"``
+    and ``"dots_nb"`` policies and its two-level ``remat_chunks`` are set by
+    no config and not ported (ROADMAP.md queue 1 item 21)."""
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: remat={cfg.remat!r} is not ported (ROADMAP.md "
+            f"queue 1 item 21); use 'full' or 'none'")
+    if cfg.remat == "full" and cfg.remat_chunks > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: remat_chunks={cfg.remat_chunks} (two-level remat) "
+            f"is not ported (ROADMAP.md queue 1 item 21)")
+    return cfg.remat == "full"
+
+
+def run_layer(fn, *args, remat: bool = False):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+    when ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _forward_layer(kind: str, p: nn.Module, x, cfg: ModelConfig):
+    x, aux, _ = _apply_layer(kind, p, x, cfg, "forward", cfg.moe_capacity)
+    return x, aux
+
+
 def forward(params: LM, cfg: ModelConfig, tokens: torch.Tensor,
             img_embeds: torch.Tensor | None = None):
     """Full-sequence forward.  Returns (logits (B, S, V_padded), aux loss):
     the MoE layers' load-balancing losses summed and divided by the number
-    of layers, zero for the other families."""
+    of layers, zero for the other families.  Where a gradient is needed,
+    each layer runs under remat as :func:`remat_layers` says."""
     require_ported(cfg)
+    remat = needs_grad(*params.parameters()) and remat_layers(cfg)
     x = _embed(params, cfg, tokens, img_embeds)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, layer in zip(params.kinds, params.layers):
-        x, aux, _ = _apply_layer(kind, layer, x, cfg, "forward",
-                                 cfg.moe_capacity)
+        x, aux = run_layer(_forward_layer, kind, layer, x, cfg, remat=remat)
         if aux is not None:
             aux_total = aux_total + aux
     x = apply_norm(cfg.norm, x, params.final_norm)

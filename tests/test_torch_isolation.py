@@ -12,7 +12,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: pathlib.Path):
@@ -35,7 +36,7 @@ def test_no_jax_or_reference_imports(path):
 def test_fresh_import_pulls_in_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.sparse.operator, "
             "repro_torch.core.api, repro_torch.launch.serve, "
-            "repro_torch.models.convert; "
+            "repro_torch.models.convert, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -59,15 +60,19 @@ def _tiny():
                                    "models.transformer.init_model",
                                    "launch.serve.serve_tokens",
                                    "launch.serve.SolverService",
-                                   "launch.serve.main --solver"])
+                                   "launch.serve.main --solver",
+                                   "train.trainer.Trainer",
+                                   "launch.train.main"])
 def test_entry_points_raise_without_a_card(monkeypatch, entry):
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import evaluate, partition, partition_tree
     from repro_torch.core.topology import Topology, scale_to_load
+    from repro_torch.launch import train as launch_train
     from repro_torch.launch.serve import SolverService, main, serve_tokens
     from repro_torch.models.transformer import init_model
     from repro_torch.sparse.distributed import build_plan
     from repro_torch.sparse.operator import cg_solve_global, make_operator
+    from repro_torch.train.trainer import Trainer, TrainerConfig
     g, (indptr, indices, data) = _tiny()
     part = np.arange(g.n) % 2
     op = make_operator(indptr, indices, data, "coo", device="cpu")
@@ -89,6 +94,10 @@ def test_entry_points_raise_without_a_card(monkeypatch, entry):
             backend="dist_halo", part=part, k=2),
         "launch.serve.main --solver": lambda: main(
             ["--solver", "--requests", "1"]),
+        "train.trainer.Trainer": lambda: Trainer(
+            get_config("qwen1.5-0.5b", smoke=True), TrainerConfig()),
+        "launch.train.main": lambda: launch_train.main(
+            ["--smoke", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
